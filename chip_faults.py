@@ -1,0 +1,121 @@
+"""Plant known faults in a copy of the flash-attention kernels and show that
+the kernel check of ``chip_smoke.py`` refuses each one.
+
+    python3 chip_faults.py        # on a machine with one NVIDIA GPU
+
+For the unchanged source and for each fault below, the port's package and
+``chip_smoke.py`` are copied into a temporary directory, one statement of
+``csrc/flash_attention.cu`` is changed there, and a child process builds
+that copy and runs ``chip_smoke.check_slice``: the three kernels against
+their plain versions at the llama_1b training shape (bf16, causal). The
+children run at once. Each prints its check line; this script prints one
+JSON line per fault with those readings, and exits non-zero unless the
+check passes the unchanged source and refuses every fault. Every fault is
+in a bf16 tensor-core kernel, the ones that shape runs.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SOURCE = Path("tensorflowonspark_tpu_torch/csrc/flash_attention.cu")
+
+# name -> (statement as in the source, the faulty statement)
+FAULTS = {
+    # forward: the O accumulator is not rescaled when the row max grows
+    "fwd_no_rescale": (
+        "for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];",
+        "for (int e = 0; e < 4; ++e) o[n][e] *= 1.f;",
+    ),
+    # dQ: the last key tile of each query tile (the causal diagonal) is lost
+    "dq_drop_last_k_tile": (
+        "mma_pz<D, 64>(dq, s, Ks, 0, g, t);  // dQ += dS K",
+        "if (k0 + BK < k_hi) mma_pz<D, 64>(dq, s, Ks, 0, g, t);",
+    ),
+    # dQ: every query tile but the first comes out 3% too large, an error
+    # confined to the bulk of the rows, below their largest values
+    "dq_bulk_3pct": (
+        "pack_f2(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);",
+        "pack_f2(dq[n][2 * i] * a.scale * (q0 >= BQ ? 1.03f : 1.f),"
+        " dq[n][2 * i + 1] * a.scale * (q0 >= BQ ? 1.03f : 1.f));",
+    ),
+    # dK: the last query tile of each key tile is lost
+    "dk_drop_last_q_tile": (
+        "mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);   // dK += dS^T Q",
+        "if (q0 + BQ < q_hi) mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);",
+    ),
+    # dV: the first query tile of each key tile (the causal diagonal) is lost
+    "dv_drop_first_q_tile": (
+        "mma_pz<D, QS>(dv, st, dOs, qs, g, t);   // dV += P^T dO",
+        "if (q0 != q_lo) mma_pz<D, QS>(dv, st, dOs, qs, g, t);",
+    ),
+}
+
+CHILD = """
+import os, chip_smoke
+from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+assert fa.__file__.startswith(os.getcwd()), fa.__file__
+chip_smoke.check_slice(fa)
+"""
+
+
+def planted(source: str, name: str) -> str:
+    """The kernel source with fault ``name`` in it (unchanged for "none")."""
+    if name == "none":
+        return source
+    old, new = FAULTS[name]
+    if source.count(old) != 1:
+        raise ValueError(f"{name}: the statement to change is not in the source once")
+    return source.replace(old, new)
+
+
+def start(name: str, workdir: Path) -> subprocess.Popen:
+    copy = workdir / name
+    shutil.copytree(ROOT / "tensorflowonspark_tpu_torch", copy / "tensorflowonspark_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", copy)
+    (copy / SOURCE).write_text(planted((ROOT / SOURCE).read_text(), name))
+    return subprocess.Popen([sys.executable, "-c", CHILD], cwd=copy, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def check_line(output: str) -> dict | None:
+    for line in reversed(output.splitlines()):
+        if line.startswith("{") and '"case"' in line:
+            return json.loads(line)
+    return None
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_faults: no CUDA device", file=sys.stderr)
+        return 1
+    names = ["none", *FAULTS]
+    good = True
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {n: start(n, Path(tmp)) for n in names}
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=900)
+            line = check_line(out)
+            if line is None:
+                print(out, file=sys.stderr)
+                good = False
+                continue
+            passed = bool(line["ok"]) and proc.returncode == 0
+            good &= passed if name == "none" else not passed
+            print(json.dumps({"fault": name, "passed_check": passed, "err": line["err"],
+                              "lse_err": line["lse_err"], "tol": line["tol"]}), flush=True)
+    print(json.dumps({"ok": good}))
+    return 0 if good else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,12 @@
+"""Optimizers and the single-device train and eval steps."""
+
+from tensorflowonspark_tpu_torch.compute.optim import (  # noqa: F401
+    adamw,
+    mixed_precision_adamw,
+    scale_by_adam,
+)
+from tensorflowonspark_tpu_torch.compute.train import (  # noqa: F401
+    TrainState,
+    build_eval_step,
+    build_train_step,
+)
