@@ -1,17 +1,21 @@
-"""Plant known faults in a copy of the flash-attention kernels and show that
-the kernel check of ``chip_smoke.py`` refuses each one.
+"""Plant known faults in a copy of the port's CUDA kernels and show that the
+kernel checks of ``chip_smoke.py`` refuse each one.
 
     python3 chip_faults.py        # on a machine with one NVIDIA GPU
 
-For the unchanged source and for each fault below, the port's package and
-``chip_smoke.py`` are copied into a temporary directory, one statement of
-``csrc/flash_attention.cu`` is changed there, and a child process builds
-that copy and runs ``chip_smoke.check_slice``: the three kernels against
-their plain versions at the llama_1b training shape (bf16, causal). The
-children run at once. Each prints its check line; this script prints one
-JSON line per fault with those readings, and exits non-zero unless the
-check passes the unchanged source and refuses every fault. Every fault is
-in a bf16 tensor-core kernel, the ones that shape runs.
+For the unchanged sources and for each fault below, the port's package and
+``chip_smoke.py`` are copied into a temporary directory, one statement of a
+kernel source is changed there, and a child process builds that copy and
+runs the check of that source: ``chip_smoke.check_slice`` for
+``csrc/flash_attention.cu`` (the three kernels against their plain
+versions at the llama_1b training shape, bf16, causal; every flash fault
+is in a bf16 tensor-core kernel, the ones that shape runs) and
+``chip_smoke.check_bn_edges`` for ``csrc/bn_stats.cu`` (both statistics
+kernels at the stem shape and the edge cases: ragged rows with poison past
+the end, fp32, narrow and misaligned C). The unchanged copy runs both. The
+children run at once. Each prints its check lines; this script prints one
+JSON line per fault with the readings of the last, and exits non-zero
+unless the checks pass the unchanged sources and refuse every fault.
 """
 
 from __future__ import annotations
@@ -24,44 +28,70 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = Path("tensorflowonspark_tpu_torch/csrc/flash_attention.cu")
+FLASH = Path("tensorflowonspark_tpu_torch/csrc/flash_attention.cu")
+BN = Path("tensorflowonspark_tpu_torch/csrc/bn_stats.cu")
+CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)"}
 
-# name -> (statement as in the source, the faulty statement)
+# name -> (source, statement as in the source, the faulty statement)
 FAULTS = {
     # forward: the O accumulator is not rescaled when the row max grows
     "fwd_no_rescale": (
+        FLASH,
         "for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];",
         "for (int e = 0; e < 4; ++e) o[n][e] *= 1.f;",
     ),
     # dQ: the last key tile of each query tile (the causal diagonal) is lost
     "dq_drop_last_k_tile": (
+        FLASH,
         "mma_pz<D, 64>(dq, s, Ks, 0, g, t);  // dQ += dS K",
         "if (k0 + BK < k_hi) mma_pz<D, 64>(dq, s, Ks, 0, g, t);",
     ),
     # dQ: every query tile but the first comes out 3% too large, an error
     # confined to the bulk of the rows, below their largest values
     "dq_bulk_3pct": (
+        FLASH,
         "pack_f2(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);",
         "pack_f2(dq[n][2 * i] * a.scale * (q0 >= BQ ? 1.03f : 1.f),"
         " dq[n][2 * i + 1] * a.scale * (q0 >= BQ ? 1.03f : 1.f));",
     ),
     # dK: the last query tile of each key tile is lost
     "dk_drop_last_q_tile": (
+        FLASH,
         "mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);   // dK += dS^T Q",
         "if (q0 + BQ < q_hi) mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);",
     ),
     # dV: the first query tile of each key tile (the causal diagonal) is lost
     "dv_drop_first_q_tile": (
+        FLASH,
         "mma_pz<D, QS>(dv, st, dOs, qs, g, t);   // dV += P^T dO",
         "if (q0 != q_lo) mma_pz<D, QS>(dv, st, dOs, qs, g, t);",
+    ),
+    # both bn kernels: the ragged end of a split is read (rows past the end
+    # of the tensor, poison in the check, join the sums)
+    "bn_ragged_unmasked": (
+        BN,
+        "live[u] = live_c && r < r_end;  // the ragged end of the split is masked",
+        "live[u] = live_c;",
+    ),
+    # both bn kernels: the first row split's partial sums are dropped
+    "bn_drop_first_split": (
+        BN,
+        "for (int s = ty; s < splits; s += kFinalY) {  // every split's partial, in a fixed order",
+        "for (int s = ty; s < splits; s += kFinalY) { if (s == 0) continue;",
+    ),
+    # B5: accumulates dy*dy instead of dy*x
+    "bn_cross_dy_dy": (
+        BN,
+        "q[v] += fa[v] * fb[v];",
+        "q[v] += fa[v] * fa[v];",
     ),
 }
 
 CHILD = """
 import os, chip_smoke
+from tensorflowonspark_tpu_torch.ops import bn_kernels as bn
 from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 assert fa.__file__.startswith(os.getcwd()), fa.__file__
-chip_smoke.check_slice(fa)
 """
 
 
@@ -69,7 +99,7 @@ def planted(source: str, name: str) -> str:
     """The kernel source with fault ``name`` in it (unchanged for "none")."""
     if name == "none":
         return source
-    old, new = FAULTS[name]
+    _, old, new = FAULTS[name]
     if source.count(old) != 1:
         raise ValueError(f"{name}: the statement to change is not in the source once")
     return source.replace(old, new)
@@ -80,8 +110,11 @@ def start(name: str, workdir: Path) -> subprocess.Popen:
     shutil.copytree(ROOT / "tensorflowonspark_tpu_torch", copy / "tensorflowonspark_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", copy)
-    (copy / SOURCE).write_text(planted((ROOT / SOURCE).read_text(), name))
-    return subprocess.Popen([sys.executable, "-c", CHILD], cwd=copy, text=True,
+    sources = list(CHECKS) if name == "none" else [FAULTS[name][0]]
+    for source in sources:
+        (copy / source).write_text(planted((ROOT / source).read_text(), name))
+    code = CHILD + "".join(f"chip_smoke.{CHECKS[source]}\n" for source in sources)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=copy, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
@@ -111,8 +144,9 @@ def main() -> int:
                 continue
             passed = bool(line["ok"]) and proc.returncode == 0
             good &= passed if name == "none" else not passed
-            print(json.dumps({"fault": name, "passed_check": passed, "err": line["err"],
-                              "lse_err": line["lse_err"], "tol": line["tol"]}), flush=True)
+            print(json.dumps({"fault": name, "passed_check": passed, "case": line["case"],
+                              "err": line["err"], "lse_err": line.get("lse_err"),
+                              "tol": line["tol"]}), flush=True)
     print(json.dumps({"ok": good}))
     return 0 if good else 1
 

@@ -11,6 +11,8 @@ JAX package's.
   (e.g. bf16). Moment math is fp32; only the stored state is narrow.
 - :func:`mixed_precision_adamw` — for bf16-stored params: an fp32 master
   copy lives in the state; params are its rounding every step.
+- :func:`sgd` — optax's ``sgd`` (optional momentum ``trace``), which the
+  JAX package's conv-net examples call directly.
 """
 
 from __future__ import annotations
@@ -137,6 +139,40 @@ def adamw(
     return chain(
         scale_by_adam(b1, b2, eps, moment_dtype=moment_dtype),
         add_decayed_weights(weight_decay),
+        scale_by_learning_rate(learning_rate),
+    )
+
+
+def identity() -> GradientTransformation:
+    return GradientTransformation(lambda params: EmptyState(),
+                                  lambda updates, state, params=None: (updates, state))
+
+
+class TraceState(NamedTuple):
+    trace: Any
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax ``trace``: ``t ← g + decay·t``; the update is ``t`` (or, with
+    ``nesterov``, ``g + decay·t``). The trace has the params' dtype."""
+
+    def init(params):
+        return TraceState(trace=_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None):
+        del params
+        new_trace = _map(lambda g, t: g + decay * t, updates, state.trace)
+        out = _map(lambda g, t: g + decay * t, updates, new_trace) if nesterov else new_trace
+        return out, TraceState(trace=new_trace)
+
+    return GradientTransformation(init, update)
+
+
+def sgd(learning_rate, momentum: Optional[float] = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax ``sgd``: ``trace(momentum)`` (or nothing), then ``·(−lr)``."""
+    return chain(
+        trace(momentum, nesterov) if momentum is not None else identity(),
         scale_by_learning_rate(learning_rate),
     )
 

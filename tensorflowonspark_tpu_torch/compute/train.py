@@ -7,6 +7,10 @@
 eagerly, so nothing is compiled; the params are updated in place
 (:func:`optim.apply_updates`) and the returned state holds the same
 tensors. Mesh, ZeRO and ``shard_state`` wait for ROADMAP A8.
+
+``build_bn_train_step(loss_fn, optimizer)`` is the same step for models
+with BatchNorm running statistics: ``step(state, batch_stats, batch) ->
+(state, new_batch_stats, loss)``.
 """
 
 from __future__ import annotations
@@ -65,17 +69,27 @@ def _split(batch, n):
     return list(batch.chunk(n, dim=0))
 
 
-def _value_and_grad(loss_fn, params, batch):
+def _value_and_grad(loss_fn, params, *args, has_aux=False):
+    """``(loss, grads)``, or ``((loss, aux), grads)`` when ``loss_fn``
+    returns ``(loss, aux)``."""
     names = list(params)
     leaves = [params[n] for n in names]
     for p in leaves:
         p.requires_grad_(True)
-    loss = loss_fn(params, batch)
+    out = loss_fn(params, *args)
+    loss, aux = out if has_aux else (out, None)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = {
         n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, leaves, grads)
     }
-    return loss.detach(), grads
+    return ((loss.detach(), aux) if has_aux else loss.detach()), grads
+
+
+def _apply(optimizer, state: "TrainState", grads) -> "TrainState":
+    with torch.no_grad(), torch.profiler.record_function(WEIGHT_UPDATE_SCOPE):
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+    return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state)
 
 
 def build_train_step(
@@ -120,10 +134,35 @@ def build_train_step(
     def step(state: TrainState, batch):
         batch = _to_device(batch, device)
         loss, grads = grads_of(state.params, batch)
-        with torch.no_grad(), torch.profiler.record_function(WEIGHT_UPDATE_SCOPE):
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-            apply_updates(state.params, updates)
-        return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), loss
+        return _apply(optimizer, state, grads), loss
+
+    return step
+
+
+def build_bn_train_step(
+    loss_fn: Callable[[Any, Any, Any], tuple[torch.Tensor, Any]],
+    optimizer: GradientTransformation,
+    device=None,
+) -> Callable[[TrainState, Any, Any], tuple[TrainState, Any, torch.Tensor]]:
+    """``(state, batch_stats, batch) -> (state, new_batch_stats, loss)`` on
+    ``device`` (CUDA unless named), for models with BatchNorm running
+    statistics.
+
+    The counterpart of the conv-net step of the JAX package's ResNet
+    example (``examples/resnet/resnet_imagenet.py:120-133``, the same step
+    as ``benchmarks/real_chip.py:131-144``): the gradient of
+    ``loss_fn(params, batch_stats, batch) -> (loss, new_batch_stats)`` with
+    respect to ``state.params`` (the statistics are an auxiliary output),
+    one optimizer update, ``state.step + 1``.
+    """
+    device = resolve_device(device)
+
+    def step(state: TrainState, batch_stats, batch):
+        batch = _to_device(batch, device)
+        (loss, new_stats), grads = _value_and_grad(
+            loss_fn, state.params, batch_stats, batch, has_aux=True
+        )
+        return _apply(optimizer, state, grads), new_stats, loss
 
     return step
 

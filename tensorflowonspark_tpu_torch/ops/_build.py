@@ -57,27 +57,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def _compile(name: str, out: Path) -> None:
+def _start(name: str, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, out: Path, proc, tmp: Path) -> None:
+    log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    out.with_suffix(".log").write_text(proc.stdout)
+    out.with_suffix(".log").write_text(log)
+
+
+def build(names) -> None:
+    """Compile every library of ``names`` that is missing, one ``nvcc``
+    each, all started at once (the compiler's log, with ptxas' register
+    counts, goes beside each library as ``.log``)."""
+    with _lock:
+        todo = [(n, library_path(n)) for n in names]
+        started = [(n, out, *_start(n, out)) for n, out in todo if not out.exists()]
+        errors = []
+        for name, out, proc, tmp in started:
+            try:
+                _finish(name, out, proc, tmp)
+            except RuntimeError as exc:
+                errors.append(str(exc))
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, compiled first if missing
-    (the compiler's log, with ptxas' register counts, goes beside it as
-    ``.log``)."""
+    """The loaded library for ``csrc/<name>.cu``, compiled first if missing."""
+    build([name])
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            out = library_path(name)
-            if not out.exists():
-                _compile(name, out)
-            lib = _loaded[name] = ctypes.CDLL(str(out))
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib

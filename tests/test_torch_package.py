@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package, calls no finished attention kernel, and its entry points run on
-CUDA unless told otherwise."""
+package, calls no finished attention or BatchNorm kernel, and its entry
+points run on CUDA unless told otherwise."""
 
 import ast
 import os
@@ -54,6 +54,10 @@ def test_import_leaves_jax_out():
         "import tensorflowonspark_tpu_torch, tensorflowonspark_tpu_torch.models.llama\n"
         "import tensorflowonspark_tpu_torch.compute.train, tensorflowonspark_tpu_torch.ops.attention\n"
         "import tensorflowonspark_tpu_torch.models.convert\n"
+        "import tensorflowonspark_tpu_torch.models.resnet, tensorflowonspark_tpu_torch.models.vgg\n"
+        "import tensorflowonspark_tpu_torch.models.inception, tensorflowonspark_tpu_torch.models.conv\n"
+        "import tensorflowonspark_tpu_torch.ops.batch_norm, tensorflowonspark_tpu_torch.ops.bn_kernels\n"
+        "import tensorflowonspark_tpu_torch.compute.optim\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -65,7 +69,9 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("word", ["scaled_dot_product_attention", "torch.compile", "cudnn",
-                                  "flash_attn"])
+                                  "flash_attn", "F.batch_norm", "functional.batch_norm",
+                                  "torch.batch_norm", "BatchNorm2d", "native_batch_norm",
+                                  "batch_norm_backward_reduce"])
 def test_no_finished_kernels(word):
     for path in PACKAGE.rglob("*"):
         if path.suffix in (".py", ".cu", ".cuh") and "build" not in path.parts:
@@ -76,15 +82,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
     """With no CUDA device and no ``device``, the entry points raise; with
     ``device='cpu'`` they run there."""
     from tensorflowonspark_tpu_torch import resolve_device
-    from tensorflowonspark_tpu_torch.compute import adamw, build_eval_step, build_train_step
+    from tensorflowonspark_tpu_torch.compute import (
+        adamw,
+        build_bn_train_step,
+        build_eval_step,
+        build_train_step,
+        sgd,
+    )
+    from tensorflowonspark_tpu_torch.models.inception import InceptionConfig, InceptionV3
     from tensorflowonspark_tpu_torch.models.llama import Llama, LlamaConfig
+    from tensorflowonspark_tpu_torch.models.resnet import ResNet, ResNetConfig
+    from tensorflowonspark_tpu_torch.models.vgg import VGG, VGGConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = LlamaConfig.tiny(num_layers=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Llama(cfg)
+    for build, conf in ((ResNet, ResNetConfig.tiny()), (VGG, VGGConfig.tiny()),
+                        (InceptionV3, InceptionConfig.tiny())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(conf)
+        assert next(build(conf, device="cpu").parameters()).device == torch.device("cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_train_step(lambda p, b: None, adamw())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bn_train_step(lambda p, s, b: None, sgd(0.1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_eval_step(lambda p, b: None)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -98,11 +120,12 @@ def test_kernel_build_is_lazy_and_keyed_on_source():
     source's content, so an edited source never loads a stale build."""
     from tensorflowonspark_tpu_torch.ops import _build
 
-    path = _build.library_path("flash_attention")
-    assert path.parent == PACKAGE / "csrc" / "build"
-    assert path.name.startswith("libflash_attention-") and path.suffix == ".so"
+    for name in ("flash_attention", "bn_stats"):
+        path = _build.library_path(name)
+        assert path.parent == PACKAGE / "csrc" / "build"
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
-    assert [p.name for p in _build.CSRC.glob("*.cu")] == ["flash_attention.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == ["bn_stats.cu", "flash_attention.cu"]
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "tensorflowonspark_tpu_torch/csrc/build/" in gitignore
 
@@ -136,20 +159,56 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
-@pytest.mark.parametrize("fault", ["fwd_no_rescale", "dq_drop_last_k_tile", "dq_bulk_3pct",
-                                   "dk_drop_last_q_tile", "dv_drop_first_q_tile"])
-def test_chip_faults_plants_each_fault_in_the_kernel_source(fault):
-    """Each fault of chip_faults.py changes exactly one statement of the
-    current kernel source, so the fault check keeps up with the kernels."""
+def _import_root_module(name):
     sys.path.insert(0, str(ROOT))
     try:
-        import chip_faults
+        return __import__(name)
     finally:
         sys.path.remove(str(ROOT))
-    source = (ROOT / chip_faults.SOURCE).read_text()
-    assert sorted(chip_faults.FAULTS) == sorted(
-        ["fwd_no_rescale", "dq_drop_last_k_tile", "dq_bulk_3pct", "dk_drop_last_q_tile",
-         "dv_drop_first_q_tile"])
+
+
+def test_chip_smoke_conv_helpers_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's batch-norm and conv helpers run on the CPU at small
+    sizes: its table of ResNet-50's BatchNorm shapes and the MAC count come
+    out of the model, a statistics check passes on the plain versions, and
+    a tiny ResNet trains and resets to the same trajectory."""
+    from tensorflowonspark_tpu_torch.models.resnet import ResNet, ResNetConfig, loss_fn
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+
+    smoke = _import_root_module("chip_smoke")
+    monkeypatch.setattr(smoke, "DEVICE", "cpu")
+    shapes, macs = smoke.conv_shapes(ResNet(ResNetConfig.resnet50(dtype=torch.float32),
+                                            device="cpu"), 224)
+    counts = {}
+    for rows, c in shapes:
+        counts[(rows * 256, c)] = counts.get((rows * 256, c), 0) + 1
+    assert sorted((r, c, n) for (r, c), n in counts.items()) == sorted(smoke.RESNET50_BN)
+    assert macs == 4_089_184_256
+    x, dy = smoke.bn_inputs(1000, 64, torch.bfloat16, seed=0, offset=1, tail=8)
+    assert x.data_ptr() % 16 and smoke.check_bn_case(bn_kernels, "cpu", x, dy) == 0.0
+    model = ResNet(ResNetConfig.tiny(), device="cpu")
+    run = smoke.ConvRun(model, loss_fn(model), smoke.image_batch(4, 32, 10))
+    losses, _ = run.steps(3)
+    run.reset()
+    again, _ = run.steps(3)
+    assert losses == again and losses[-1] < losses[0]
+
+
+FAULTS = ["fwd_no_rescale", "dq_drop_last_k_tile", "dq_bulk_3pct", "dk_drop_last_q_tile",
+          "dv_drop_first_q_tile", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy"]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_chip_faults_plants_each_fault_in_the_kernel_source(fault):
+    """Each fault of chip_faults.py changes exactly one statement of the
+    current source of its kernel, so the fault check keeps up with the
+    kernels; each source has a check that chip_smoke.py defines."""
+    chip_faults = _import_root_module("chip_faults")
+    chip_smoke = _import_root_module("chip_smoke")
+    assert sorted(chip_faults.FAULTS) == sorted(FAULTS)
+    path = chip_faults.FAULTS[fault][0]
+    assert hasattr(chip_smoke, chip_faults.CHECKS[path].split("(")[0])
+    source = (ROOT / path).read_text()
     faulty = chip_faults.planted(source, fault)
     assert faulty != source
     assert len(faulty.splitlines()) == len(source.splitlines())

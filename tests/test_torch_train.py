@@ -31,9 +31,11 @@ from tensorflowonspark_tpu.models import llama as jllama
 from tensorflowonspark_tpu_torch.compute import (
     TrainState,
     adamw,
+    build_bn_train_step,
     build_eval_step,
     build_train_step,
     mixed_precision_adamw,
+    sgd,
 )
 from tensorflowonspark_tpu_torch.models import llama as tllama
 from tensorflowonspark_tpu_torch.models.convert import params_from_jax, params_to_jax
@@ -147,6 +149,56 @@ def test_optimizer_updates_match_jax(kind):
                                    rtol=1e-5, atol=1e-6)
     state = ts if narrow else ts[0]  # adamw chains: adam state first
     assert int(state.count) == len(grads)
+
+
+@pytest.mark.parametrize("momentum,nesterov", [(None, False), (0.9, False), (0.9, True)])
+def test_sgd_matches_optax(momentum, nesterov):
+    """Four updates of ``sgd`` and ``optax.sgd`` from the same gradients,
+    a constant and a scheduled learning rate; the trace is optax's state."""
+    import optax
+
+    params, grads = _toy(1)
+    for jlr, tlr in ((0.1, 0.1), (lambda c: 0.1 / (1.0 + c), lambda c: 0.1 / (1.0 + c.float()))):
+        jtx = optax.sgd(jlr, momentum=momentum, nesterov=nesterov)
+        ttx = sgd(tlr, momentum=momentum, nesterov=nesterov)
+        jp = {k: jnp.asarray(v) for k, v in params.items()}
+        tp = {k: torch.tensor(v) for k, v in params.items()}
+        js, ts = jtx.init(jp), ttx.init(tp)
+        from tensorflowonspark_tpu_torch.compute.optim import apply_updates
+
+        for g in grads:
+            ju, js = jtx.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+            jp = optax.apply_updates(jp, ju)
+            tu, ts = ttx.update({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp)
+            apply_updates(tp, tu)
+        for k in params:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-6)
+        if momentum is not None:
+            for k in params:
+                np.testing.assert_allclose(ts[0].trace[k].numpy(), np.asarray(js[0].trace[k]),
+                                           rtol=1e-6, atol=1e-6)
+
+
+def test_bn_train_step_threads_batch_stats():
+    """``build_bn_train_step`` hands the loss the batch_stats it is given,
+    returns the loss's new ones, and updates the params in place once."""
+    params = {"w": torch.ones(3)}
+    seen = []
+
+    def loss_fn(p, stats, batch):
+        seen.append(stats["m"].clone())
+        return (p["w"] * batch).sum(), {"m": stats["m"] + 1}
+
+    tx = sgd(0.5)
+    step = build_bn_train_step(loss_fn, tx, device="cpu")
+    state = TrainState.create(params, tx)
+    stats = {"m": torch.zeros(2)}
+    for _ in range(2):
+        state, stats, loss = step(state, stats, torch.tensor([1.0, 2.0, 3.0]))
+    assert state.step == 2 and not loss.requires_grad
+    assert [s.tolist() for s in seen] == [[0.0, 0.0], [1.0, 1.0]]
+    torch.testing.assert_close(stats["m"], torch.full((2,), 2.0))
+    torch.testing.assert_close(state.params["w"], torch.tensor([0.0, -1.0, -2.0]))
 
 
 def test_weighted_accumulation_matches_full_batch():
