@@ -9,7 +9,8 @@ kernel source is changed there, and a child process builds that copy and
 runs the check of that source: ``chip_smoke.check_slice`` for
 ``csrc/flash_attention.cu`` (the three kernels against their plain
 versions at the llama_1b training shape, bf16, causal; every flash fault
-is in a bf16 tensor-core kernel, the ones that shape runs) and
+is in a bf16 kernel, the ones that shape runs: the wgmma forward and
+dK/dV kernels and the mma.sync dQ kernel) and
 ``chip_smoke.check_bn_edges`` for ``csrc/bn_stats.cu`` (both statistics
 kernels at the stem shape and the edge cases: ragged rows with poison past
 the end, fp32, narrow and misaligned C). The unchanged copy runs both. The
@@ -37,8 +38,14 @@ FAULTS = {
     # forward: the O accumulator is not rescaled when the row max grows
     "fwd_no_rescale": (
         FLASH,
-        "for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];",
-        "for (int e = 0; e < 4; ++e) o[n][e] *= 1.f;",
+        "for (int e = 0; e < NO; ++e) o[e] *= alpha[(e >> 1) & 1];",
+        "for (int e = 0; e < NO; ++e) o[e] *= 1.f;",
+    ),
+    # forward: the tile on the causal frontier takes the unmasked path
+    "fwd_frontier_unmasked": (
+        FLASH,
+        "const bool full_tile = tile_plain(a, qw0, 64, k0, BN) && below_frontier(a, qw0, k0 + BN - 1);",
+        "const bool full_tile = tile_plain(a, qw0, 64, k0, BN);",
     ),
     # dQ: the last key tile of each query tile (the causal diagonal) is lost
     "dq_drop_last_k_tile": (
@@ -57,14 +64,20 @@ FAULTS = {
     # dK: the last query tile of each key tile is lost
     "dk_drop_last_q_tile": (
         FLASH,
-        "mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);   // dK += dS^T Q",
-        "if (q0 + BQ < q_hi) mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);",
+        "for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs(dk, dsf[kk], mn_desc(sQ, NQ, kk));  // dK += dS^T Q",
+        "if (q0 + NQ < q_hi) for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs(dk, dsf[kk], mn_desc(sQ, NQ, kk));",
     ),
     # dV: the first query tile of each key tile (the causal diagonal) is lost
     "dv_drop_first_q_tile": (
         FLASH,
-        "mma_pz<D, QS>(dv, st, dOs, qs, g, t);   // dV += P^T dO",
-        "if (q0 != q_lo) mma_pz<D, QS>(dv, st, dOs, qs, g, t);",
+        "for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs(dv, pf[kk], mn_desc(sdO, NQ, kk));  // dV += P^T dO",
+        "if (q0 != q_lo) for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs(dv, pf[kk], mn_desc(sdO, NQ, kk));",
+    ),
+    # dK/dV: the tile on the causal frontier takes the unmasked path
+    "dkv_frontier_unmasked": (
+        FLASH,
+        "const bool full_tile = tile_plain(a, q0, NQ, wk0, 64) && below_frontier(a, q0, wk0 + 63);",
+        "const bool full_tile = tile_plain(a, q0, NQ, wk0, 64);",
     ),
     # both bn kernels: the ragged end of a split is read (rows past the end
     # of the tensor, poison in the check, join the sums)

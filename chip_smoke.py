@@ -13,7 +13,9 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    H=16, D=128, bf16, causal) and at small GQA, sq != sk, dead-row, window
    and segment cases; times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only: the port never calls
-   it), and the bound of each kernel on an H100.
+   it; forward for B1; for B2 and B3, which it computes in one call, the
+   backward alone on a kept forward, as device time under the profiler), and
+   the bound of each kernel on an H100 with the kernel's share of it.
 3. train — ``LlamaConfig.llama_1b(remat=False)`` at full depth, batch 8,
    seq 1024, fp32 params, ``adamw(moment_dtype=bf16)``, attention ``auto``:
    one warm-up step, then 5 timed steps on one fixed batch, with the kernel
@@ -119,6 +121,26 @@ def time_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=10, warmup=2) -> float:
+    """Device time of one call of ``fn``: the kernels' own time under
+    torch.profiler, summed and averaged over ``iters`` calls. Unlike
+    time_ms it leaves out the gaps where the card waits for the host, which
+    set the event time of a call whose host side is nearly as long as its
+    kernels (the library's backward)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type))
+    return total_us / 1e3 / iters
+
+
 def compare(a, b, rtol) -> dict:
     """How far a is from b, in units of b's rms (at least RMS_FLOOR): the
     least atol_rms that passes at this rtol, and the Frobenius-relative
@@ -143,7 +165,7 @@ def phase_device(build):
         log = build.library_path(name).with_suffix(".log")
         ptxas[name] = [
             line.strip() for line in (log.read_text() if log.exists() else "").splitlines()
-            if "registers" in line or "spill" in line
+            if any(w in line for w in ("entry function", "registers", "spill", "warning"))
         ]
     emit({
         "phase": "device",
@@ -278,8 +300,17 @@ def phase_kernels(fa):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot)
 
-    library = {"fwd": time_ms(sdpa_fwd), "dq": time_ms(sdpa_fwd_bwd)}
-    library["dkv"] = library["dq"]
+    kept = sdpa(qt, kt, vt, is_causal=True)  # the backward alone runs on a kept forward
+
+    def sdpa_bwd():
+        torch.autograd.grad(kept, (qt, kt, vt), dot, retain_graph=True)
+
+    # the library's backward computes dQ, dK and dV in one call: the
+    # yardstick of B2 + B3 together, given to each of the two, as device
+    # time (its host side takes ~0.2 ms a call, near its kernels' time)
+    bwd_ms = device_ms(sdpa_bwd)
+    library = {"fwd": time_ms(sdpa_fwd), "dq": bwd_ms, "dkv": bwd_ms}
+    bwd_event_ms, fwd_bwd_ms = time_ms(sdpa_bwd), time_ms(sdpa_fwd_bwd)
     rows = {}
     for kind, (kern, plain) in times.items():
         k_ms, p_ms = time_ms(kern), time_ms(plain, iters=3, warmup=1)
@@ -288,13 +319,18 @@ def phase_kernels(fa):
                           library_ms=library[kind], max_abs_err=abs_errs[kind])
         emit({"phase": "kernels", "kernel": kind, "shape": SLICE, "dtype": "bfloat16",
               "causal": True, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_us": b_ms * 1e3,
-              "bound_by": by, "library_ms": library[kind],
-              "library": "scaled_dot_product_attention " + ("fwd" if kind == "fwd" else "fwd+bwd")})
+              "bound_by": by, "share_of_bound": b_ms / k_ms, "library_ms": library[kind],
+              "library": "scaled_dot_product_attention "
+                         + ("fwd" if kind == "fwd" else "bwd (device time)")})
+    emit({"phase": "kernels", "kernel": "dq+dkv", "kernel_ms": rows["dq"]["ms"] + rows["dkv"]["ms"],
+          "library_bwd_device_ms": bwd_ms, "library_bwd_event_ms": bwd_event_ms,
+          "library_fwd_bwd_event_ms": fwd_bwd_ms,
+          "bound_ms": rows["dq"]["bound_ms"] + rows["dkv"]["bound_ms"]})
     return rows
 
 
 KINDS = (  # (kind, substrings of the kernel's name), first match wins
-    ("flash", ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel", "::fwd_kernel",
+    ("flash", ("fwd_wgmma_kernel", "dq_mma_kernel", "dkv_wgmma_kernel", "::fwd_kernel",
                "::dq_kernel", "::dkv_kernel")),
     ("bn_stats", ("stats_partial_kernel", "stats_finalize_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
@@ -342,7 +378,9 @@ def profile_steps(run_step, n=2, model=None):
           "device_busy_ms_per_step": busy, "device_idle_share": 1 - busy * n / wall_ms,
           "device_ms_by_kind": kinds, "weight_update_device_ms": update_ms,
           "top_kernels": [dict(ms=k[0], launches=k[1], kind=k[2], name=k[3])
-                          for k in kernels[:15]]})
+                          for k in kernels[:15]],
+          "port_kernels": [dict(ms=k[0], launches=k[1], name=k[3]) for k in kernels
+                           if k[2] in ("flash", "bn_stats")]})
 
 
 def phase_train(fa):

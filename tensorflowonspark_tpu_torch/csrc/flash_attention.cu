@@ -1,10 +1,10 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Replaces the Pallas TPU kernels of tensorflowonspark_tpu/ops/flash_attention.py:
-//   fwd_mma_kernel / fwd_kernel  <- _fwd_kernel  (flash_attention.py:134, pallas_call :303)
-//   dq_mma_kernel  / dq_kernel   <- _dq_kernel   (flash_attention.py:343, pallas_call :550)
-//   dkv_mma_kernel / dkv_kernel  <- _dkv_kernel  (flash_attention.py:400, pallas_call :600)
-// (the *_mma_kernel for bf16 inputs, the others for fp32).
+//   fwd_wgmma_kernel / fwd_kernel  <- _fwd_kernel  (flash_attention.py:134, pallas_call :303)
+//   dq_mma_kernel    / dq_kernel   <- _dq_kernel   (flash_attention.py:343, pallas_call :550)
+//   dkv_wgmma_kernel / dkv_kernel  <- _dkv_kernel  (flash_attention.py:400, pallas_call :600)
+// (the first of each pair for bf16 inputs, the second for fp32).
 //
 // What bounds them on an H100 SXM (989 TFLOP/s dense bf16 in the tensor
 // cores, 67 TFLOP/s fp32 outside them, 3.35 TB/s HBM), at the llama_1b
@@ -21,40 +21,58 @@
 // statistics cross HBM, and each input tile is read once per block that
 // needs it.
 //
-// Two implementations share the grid, the masks and the tile skipping:
-//   - bf16 inputs (the training path) run on the tensor cores with
-//     mma.sync m16n8k16 (bf16 in, fp32 accumulate); P and dS are rounded to
-//     bf16 before their products, as FlashAttention-2 does;
+// Three implementations share the masks and the tile skipping:
+//   - bf16 forward and dK/dV (the training path): warp-specialised blocks
+//     of one TMA producer warpgroup and two wgmma consumer warpgroups over
+//     a ring of shared-memory stages completed on mbarriers (hopper.cuh and
+//     the section "bf16 forward (B1) and dK/dV (B3)" below). Only wgmma
+//     reaches the card's dense bf16 rate, TMA moves a tile with no thread's
+//     loads or registers, and the ring overlaps the next tile's copy with
+//     the current tile's products. Wholly live tiles skip the mask.
+//   - bf16 dQ: mma.sync m16n8k16 from padded shared tiles, loads between
+//     two __syncthreads() (not yet redesigned).
 //   - fp32 inputs run fp32 FMA tiles, exact to fp32 rounding.
-// Neither uses wgmma or TMA yet, nor overlaps the next tile's loads with
-// the current tile's products.
+// On the tensor cores P and dS are rounded to bf16 before their products,
+// as FlashAttention-2 and -3 do.
 //
 // Design (one block owns one output tile and loops over the other axis;
 // nothing is carried across blocks, since Hopper runs blocks in no order):
-//   - fwd, dQ: a block owns (batch*q-head, 64 query rows) and streams the
-//     64-key tiles of its KV head. GQA is index arithmetic on the KV head,
-//     with no repeat of K/V.
-//   - dK/dV: a block owns (batch*kv-head, 64 keys) and streams the query
-//     tiles of every q head of its GQA group, so the group sum of
-//     flash_attention.py:626-632 happens in fp32 inside the block.
+//   - fwd, dQ: a block owns (batch*q-head, query rows: 128 in the wgmma
+//     forward, 64 otherwise) and streams the key tiles of its KV head. GQA
+//     is index arithmetic on the KV head, with no repeat of K/V. The wgmma
+//     forward's grid runs the last query tiles, the heaviest under causal
+//     masking, first: grid (B*Hq, Sq/128), one block (384 threads, 225 KB
+//     of shared memory at D=128: Q and three K/V stages) per SM.
+//   - dK/dV: a block owns (batch*kv-head, keys: 128 in the wgmma kernel,
+//     64 otherwise) and streams the query tiles of every q head of its GQA
+//     group, so the group sum of flash_attention.py:626-632 happens in fp32
+//     inside the block, with no atomics (results repeat bit for bit). Grid
+//     (B*Hk, Sk/128) for the wgmma kernel, low (heaviest) key tiles first,
+//     one block (163 KB at D=128: K, V and three Q/dO stages) per SM.
 //   - Tiles whose keys are all outside the end-aligned causal frontier or
 //     below the sliding window are never visited (O(S*W) work under a
 //     window); masked entries inside a visited tile get probability 0.
 //   - Q/K/V/dO are read in their (B, S, H, D) layout straight from the
-//     model's projections: no transpose. LSE and delta are fp32 (B*Hq, Sq).
+//     model's projections: no transpose. The TMA maps are 4-D over
+//     (B, S, H, D), so rows past S of a ragged end come back as zeros, not
+//     the next batch's rows. LSE and delta are fp32 (B*Hq, Sq).
 //   - Dead rows (no live key): O = 0 and LSE = NEG_INF; their dQ is 0 and
 //     they add nothing to dK/dV. NEG_INF is the finite -1e30 of the JAX
 //     package.
 // Inputs: fp32 or bf16, head dim 64 or 128, 16-byte aligned.
 // Each entry point returns cudaGetLastError() (or -1 for an unsupported
-// dtype/head dim); the launch goes on the caller's stream and does not
-// synchronise.
+// dtype/head dim, -2 when a TMA tensor map cannot be encoded); the launch
+// goes on the caller's stream and does not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;     // query rows per tile
@@ -178,24 +196,26 @@ __device__ __forceinline__ bool is_live(const Args& a, int i, int j, int seg_i, 
   return ok;
 }
 
-// Keys [lo, hi) that queries [q0, q0 + BQ) can reach.
-__device__ __forceinline__ void key_range(const Args& a, int q0, int& lo, int& hi) {
+// Keys [lo, hi) that queries [q0, q0 + bq) can reach; lo on a bk boundary.
+__device__ __forceinline__ void key_range(const Args& a, int q0, int& lo, int& hi, int bq = BQ,
+                                          int bk = BK) {
   const int off = a.sk - a.sq;
   lo = 0;
   hi = a.sk;
-  if (a.causal) hi = min(a.sk, min(q0 + BQ, a.sq) + off);
+  if (a.causal) hi = min(a.sk, min(q0 + bq, a.sq) + off);
   if (a.window > 0) lo = max(0, q0 + off - a.window + 1);
-  lo = (lo / BK) * BK;
+  lo = (lo / bk) * bk;
 }
 
-// Queries [lo, hi) that can reach keys [k0, k0 + BK).
-__device__ __forceinline__ void query_range(const Args& a, int k0, int& lo, int& hi) {
+// Queries [lo, hi) that can reach keys [k0, k0 + bk); lo on a bq boundary.
+__device__ __forceinline__ void query_range(const Args& a, int k0, int& lo, int& hi, int bk = BK,
+                                            int bq = BQ) {
   const int off = a.sk - a.sq;
   lo = 0;
   hi = a.sq;
   if (a.causal) lo = max(0, k0 - off);
-  if (a.window > 0) hi = min(a.sq, min(k0 + BK, a.sk) - 1 - off + a.window);
-  lo = (lo / BQ) * BQ;
+  if (a.window > 0) hi = min(a.sq, min(k0 + bk, a.sk) - 1 - off + a.window);
+  lo = (lo / bq) * bq;
 }
 
 // (The two loaders below cover their 64 entries with threads 0..63, so
@@ -465,9 +485,9 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: the same three kernels on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate). A block has 4 warps; each warp owns
-// 16 rows of the block's 64 (query rows in fwd/dQ, keys in dK/dV). Tiles
+// bf16 dQ on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate). A block has 4 warps; each warp owns 16 query rows of the
+// block's 64. Tiles
 // stay bf16 in shared memory with a row stride of D + 8 elements, so the
 // fragment loads of a warp hit 32 distinct banks. Score tiles never leave
 // registers: the accumulator layout of S (or P, dS) is reused as the A
@@ -567,100 +587,6 @@ __device__ __forceinline__ void mma_pz(float acc[D / 8][4], const float p[K / 8]
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MT) fwd_mma_kernel(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ float smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + 64 * LD;
-  bf16* Vs = Ks + 64 * LD;
-  int* segq = reinterpret_cast<int*>(Vs + 64 * LD);
-  int* segk = segq + 64;
-
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int bi = bh / a.hq, h = bh % a.hq;
-  const int hkv = h / (a.hq / a.hk);
-  const int r0 = w * 16;  // this warp's rows of the tile
-
-  load_tile_bf16<D>(Qs, static_cast<const bf16*>(a.q), bi, q0, a.sq, a.hq, h);
-  load_seg(segq, a, bi, q0, a.sq, -1);
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  int k_lo, k_hi;
-  key_range(a, q0, k_lo, k_hi);
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    load_tile_bf16<D>(Ks, static_cast<const bf16*>(a.k), bi, k0, a.sk, a.hk, hkv);
-    load_tile_bf16<D>(Vs, static_cast<const bf16*>(a.v), bi, k0, a.sk, a.hk, hkv);
-    load_seg(segk, a, bi, k0, a.sk, -2);
-    __syncthreads();
-
-    float s[8][4];
-    mma_xyt<D, 64>(s, Qs, r0, Ks, 0, g, t);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + g + (e >> 1) * 8, c = j * 8 + t * 2 + (e & 1);
-        const bool ok = is_live(a, q0 + r, k0 + c, a.seg ? segq[r] : 0, a.seg ? segk[c] : 0);
-        s[j][e] = ok ? s[j][e] * a.scale : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (s[j][e] > NEG_INF / 2) ? expf(s[j][e] - m[e >> 1]) : 0.f;
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l[i] = alpha[i] * l[i] + rs[i];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    mma_pz<D, 64>(o, s, Vs, 0, g, t);
-  }
-
-  bf16* out = static_cast<bf16*>(a.out);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + g + i * 8;
-    if (qi >= a.sq) continue;
-    const bool dead = !(l[i] > 0.f);
-    const float inv = dead ? 0.f : 1.f / l[i];
-    bf16* row = out + (((size_t)bi * a.sq + qi) * a.hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + t * 2) =
-          pack_f2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    if (t == 0) a.lse_out[(size_t)bh * a.sq + qi] = dead ? NEG_INF : m[i] + logf(l[i]);
-  }
-}
-
 // A live entry of a row that has a live key at all (LSE above NEG_INF).
 __device__ __forceinline__ bool live_entry(const Args& a, float lse, int qi, int kj, int seg_i,
                                            int seg_j) {
@@ -736,95 +662,415 @@ __global__ void __launch_bounds__(MT) dq_mma_kernel(Args a) {
   }
 }
 
-// dK/dV: each warp owns 16 keys; the 64 queries of a loaded tile are
-// taken 32 at a time to bound the registers held beside dK and dV.
+// ---------------------------------------------------------------------------
+// bf16 forward (B1) and dK/dV (B3) on Hopper's asynchronous units.
+//
+// A block is three warpgroups. Warpgroup 0 is the producer: one thread
+// issues TMA tile loads into a ring of shared-memory stages, each stage
+// completed on a "full" mbarrier; it keeps 24 registers (setmaxnreg).
+// Warpgroups 1 and 2 are consumers with 240 registers each: they wait on
+// a stage's full barrier, run their products with wgmma (fp32 accumulators
+// in registers), and release the stage on its "empty" barrier (one arrival
+// per consumer warp). Score tiles never leave registers: the accumulator
+// of S (or P^T, dS^T), rounded to bf16, is the A operand of the next
+// product (the wgmma RS form). The same swizzled tile is read K-major by
+// one product and MN-major by the next (hopper.cuh).
+//
+// A tile that is wholly live (in range, below the causal frontier, inside
+// the window, no segments) takes the unmasked path; any other tile masks
+// its dead entries to -inf before the exponential, with is_live's
+// arithmetic. Softmax runs in base 2 with scale * log2(e) folded in; LSE
+// stays natural at the interface.
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int WG_THREADS = 128;
+constexpr int HOPPER_THREADS = 3 * WG_THREADS;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128*24 + 256*240 <= 65536
+constexpr int ENCODE_FAILED = -2;  // the TMA tensor map could not be encoded
+
+// Rows [i0, i0 + ni) and keys [j0, j0 + nj) all in range and inside the
+// window, with no segments: everything of is_live but the causal frontier.
+__device__ __forceinline__ bool tile_plain(const Args& a, int i0, int ni, int j0, int nj) {
+  bool ok = i0 + ni <= a.sq && j0 + nj <= a.sk && a.seg == nullptr;
+  if (a.window > 0) ok = ok && (i0 + ni - 1 + a.sk - a.sq - j0 < a.window);
+  return ok;
+}
+
+// Key j is not past query i's causal frontier.
+__device__ __forceinline__ bool below_frontier(const Args& a, int i, int j) {
+  return !a.causal || j <= i + a.sk - a.sq;
+}
+
+// No query of [i0, i0 + ni) attends a key of [j0, j0 + nj).
+__device__ __forceinline__ bool tile_dead(const Args& a, int i0, int ni, int j0, int nj) {
+  const int off = a.sk - a.sq;
+  return i0 >= a.sq || j0 >= a.sk || (a.causal && i0 + ni - 1 + off < j0) ||
+         (a.window > 0 && i0 + off - (j0 + nj - 1) >= a.window);
+}
+
+// The shared memory of a block, 1024-byte aligned (128-byte swizzle).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t s = smem_u32(raw);
+  return raw + (((s + 1023) & ~1023u) - s);
+}
+
+// B1: a block owns 128 query rows of one (batch, q head), 64 per consumer
+// warpgroup, and streams 128-key K/V tiles through STAGES stages.
 template <int D>
-__global__ void __launch_bounds__(MT) dkv_mma_kernel(Args a) {
-  constexpr int LD = D + 8;
-  constexpr int QS = 32;
-  extern __shared__ float smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + 64 * LD;
-  bf16* Qs = Vs + 64 * LD;
-  bf16* dOs = Qs + 64 * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + 64 * LD);
-  float* delta_s = lse_s + 64;
-  int* segq = reinterpret_cast<int*>(delta_s + 64);
-  int* segk = segq + 64;
+struct FwdTiles {
+  static constexpr int BM = 128, BN = 128, STAGES = 3;
+  static constexpr uint32_t Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  // alignment slack, Q, STAGES x (K, V), barriers
+  static constexpr size_t SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
 
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK;
-  const int bkh = blockIdx.y;
-  const int bi = bkh / a.hk, hkv = bkh % a.hk;
-  const int group = a.hq / a.hk;
-  const int r0 = w * 16;  // this warp's keys of the tile
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Args a) {
+  using T = FwdTiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES, NO = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = smem_u32(aligned_smem(smem_raw));
+  const uint32_t sKV = sQ + T::Q_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
+  const uint32_t bars = sKV + ST * 2 * T::KV_BYTES;  // Q full, full[ST], empty[ST]
 
-  load_tile_bf16<D>(Ks, static_cast<const bf16*>(a.k), bi, k0, a.sk, a.hk, hkv);
-  load_tile_bf16<D>(Vs, static_cast<const bf16*>(a.v), bi, k0, a.sk, a.hk, hkv);
-  load_seg(segk, a, bi, k0, a.sk, -2);
+  const int bh = blockIdx.x, bi = bh / a.hq, h = bh % a.hq, hkv = h / (a.hq / a.hk);
+  const int q0 = ((a.sq + BM - 1) / BM - 1 - (int)blockIdx.y) * BM;  // last (heaviest) first
+  int k_lo, k_hi;
+  key_range(a, q0, k_lo, k_hi, BM, BN);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
 
-  float dk[D / 8][4], dv[D / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 8 * (1 + s), 1);
+      mbar_init(bars + 8 * (1 + ST + s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {  // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bars, T::Q_BYTES);
+      for (int p = 0; p < D / 64; ++p) tma_load_4d(sQ + p * BM * 128, &tq, bars, 64 * p, h, q0, bi);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST, k0 = k_lo + it * BN;
+        const uint32_t full = bars + 8 * (1 + s), kv = sKV + s * 2 * T::KV_BYTES;
+        mbar_wait(bars + 8 * (1 + ST + s), ((it / ST) & 1) ^ 1);
+        mbar_arrive_expect_tx(full, 2 * T::KV_BYTES);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(kv + p * BN * 128, &tk, full, 64 * p, hkv, k0, bi);
+          tma_load_4d(kv + T::KV_BYTES + p * BN * 128, &tv, full, 64 * p, hkv, k0, bi);
+        }
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = threadIdx.x / WG_THREADS - 1, wi = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int qw0 = q0 + 64 * cw;  // this warpgroup's first query row
+    const int r0 = qw0 + 16 * wi + g;  // this thread's rows: r0 and r0 + 8
+    const float sl = a.scale * LOG2E;
+    int segq[2] = {0, 0};
+    if (a.seg)
+      for (int i = 0; i < 2; ++i)
+        segq[i] = r0 + 8 * i < a.sq ? a.seg[(size_t)bi * a.sq + r0 + 8 * i] : -1;
+
+    float o[NO], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int e = 0; e < NO; ++e) o[e] = 0.f;
+    mbar_wait(bars, 0);
 
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % ST, k0 = k_lo + it * BN;
+      const uint32_t sK = sKV + s * 2 * T::KV_BYTES, sV = sK + T::KV_BYTES;
+      mbar_wait(bars + 8 * (1 + s), (it / ST) & 1);
+
+      float sc[BN / 2];  // S = Q K^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, kmajor_desc(sQ, BM, 64 * cw, kk), kmajor_desc(sK, BN, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+
+      const bool full_tile = tile_plain(a, qw0, 64, k0, BN) && below_frontier(a, qw0, k0 + BN - 1);
+      if (!full_tile) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          const int r = r0 + 8 * ((e >> 1) & 1), c = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+          const int segk = a.seg && c < a.sk ? a.seg[(size_t)bi * a.sk + c] : -2;
+          if (!is_live(a, r, c, segq[(e >> 1) & 1], segk)) sc[e] = -INFINITY;
+        }
+      }
+      float mx[2] = {NEG_INF, NEG_INF}, alpha[2];
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * sl);  // finite: m starts at NEG_INF
+        alpha[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+      uint32_t pf[BN / 16][4];  // P in bf16, the A operand of P V
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = 8 * kk + 2 * r;
+          const float p0 = exp2f(fmaf(sc[e], sl, -m[r & 1]));
+          const float p1 = exp2f(fmaf(sc[e + 1], sl, -m[r & 1]));
+          l[r & 1] += p0 + p1;
+          pf[kk][r] = pack_f2(p0, p1);
+        }
+#pragma unroll
+      for (int e = 0; e < NO; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+      wgmma_fence();  // O += P V
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(o, pf[kk], mn_desc(sV, BN, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_frag(pf);
+      if (lane == 0) mbar_arrive(bars + 8 * (1 + ST + s));
+    }
+
+    bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int qi = r0 + 8 * i;
+      if (qi >= a.sq) continue;
+      const bool dead = !(l[i] > 0.f);
+      const float inv = dead ? 0.f : 1.f / l[i];
+      bf16* row = out + (((size_t)bi * a.sq + qi) * a.hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+            pack_f2(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      if (t == 0) a.lse_out[(size_t)bh * a.sq + qi] = dead ? NEG_INF : m[i] * LN2 + logf(l[i]);
+    }
+  }
+}
+
+// B3: a block owns 128 keys of one (batch, kv head), 64 per consumer
+// warpgroup, and streams 64-query Q/dO tiles of every q head of its GQA
+// group through STAGES stages, with each tile's LSE (times log2 e) and
+// delta, which the producer warp writes beside it.
+template <int D>
+struct DkvTiles {
+  static constexpr int KEYS = 128, QROWS = 64, STAGES = 3;
+  static constexpr uint32_t KV_BYTES = KEYS * D * 2, QT_BYTES = QROWS * D * 2;
+  // alignment slack, K, V, STAGES x (Q, dO), STAGES x (lse2, delta), barriers
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * QT_BYTES +
+                                 STAGES * 2 * QROWS * 4 + 8 * (1 + 2 * STAGES);
+};
+
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+    dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const Args a) {
+  using T = DkvTiles<D>;
+  constexpr int NK = T::KEYS, NQ = T::QROWS, ST = T::STAGES, NO = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = aligned_smem(smem_raw);
+  const uint32_t sK = smem_u32(base), sV = sK + T::KV_BYTES;
+  const uint32_t sQT = sV + T::KV_BYTES;  // stage s: Q at sQT + 2 s QT_BYTES, dO after it
+  float* rowstat = reinterpret_cast<float*>(base + 2 * T::KV_BYTES + ST * 2 * T::QT_BYTES);
+  const uint32_t bars = smem_u32(rowstat + ST * 2 * NQ);  // K/V full, full[ST], empty[ST]
+
+  const int bkh = blockIdx.x, bi = bkh / a.hk, hkv = bkh % a.hk, group = a.hq / a.hk;
+  const int k0 = blockIdx.y * NK;  // low key tiles, the heaviest under causal masking, first
   int q_lo, q_hi;
-  query_range(a, k0, q_lo, q_hi);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hkv * group + gi;
-    const int bh = bi * a.hq + h;
-    for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
-      __syncthreads();
-      load_tile_bf16<D>(Qs, static_cast<const bf16*>(a.q), bi, q0, a.sq, a.hq, h);
-      load_tile_bf16<D>(dOs, static_cast<const bf16*>(a.dout), bi, q0, a.sq, a.hq, h);
-      load_row_stats(lse_s, delta_s, a, bh, q0);
-      load_seg(segq, a, bi, q0, a.sq, -1);
-      __syncthreads();
-#pragma unroll
-      for (int qs = 0; qs < 64; qs += QS) {
-        // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries
-        float st[QS / 8][4], dpt[QS / 8][4];
-        mma_xyt<D, QS>(st, Ks, r0, Qs, qs, g, t);
-        mma_xyt<D, QS>(dpt, Vs, r0, dOs, qs, g, t);
-#pragma unroll
-        for (int j = 0; j < QS / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kr = r0 + g + (e >> 1) * 8, qc = qs + j * 8 + t * 2 + (e & 1);
-            const bool ok = live_entry(a, lse_s[qc], q0 + qc, k0 + kr,
-                                       a.seg ? segq[qc] : 0, a.seg ? segk[kr] : 0);
-            const float p = ok ? expf(st[j][e] * a.scale - lse_s[qc]) : 0.f;
-            st[j][e] = p;
-            dpt[j][e] = p * (dpt[j][e] - delta_s[qc]);  // dS^T
+  query_range(a, k0, q_lo, q_hi, NK, NQ);
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + NQ - 1) / NQ : 0;  // query tiles per q head
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 8 * (1 + s), 32);
+      mbar_init(bars + 8 * (1 + ST + s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {  // producer: warp 0
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bars, 2 * T::KV_BYTES);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_4d(sK + p * NK * 128, &tk, bars, 64 * p, hkv, k0, bi);
+          tma_load_4d(sV + p * NK * 128, &tv, bars, 64 * p, hkv, k0, bi);
+        }
+      }
+      for (int it = 0; it < group * n_q; ++it) {
+        const int s = it % ST, h = hkv * group + it / n_q, q0 = q_lo + (it % n_q) * NQ;
+        const uint32_t full = bars + 8 * (1 + s), qt = sQT + s * 2 * T::QT_BYTES;
+        const size_t row0 = ((size_t)bi * a.hq + h) * a.sq;
+        mbar_wait(bars + 8 * (1 + ST + s), ((it / ST) & 1) ^ 1);
+        float* lse2 = rowstat + s * 2 * NQ;
+        for (int r = lane; r < NQ; r += 32) {
+          const bool in = q0 + r < a.sq;
+          const float lse = in ? a.lse[row0 + q0 + r] : NEG_INF;
+          lse2[r] = lse > NEG_INF / 2 ? lse * LOG2E : INFINITY;  // a dead row's P: exp2(-inf) = 0
+          lse2[NQ + r] = in ? a.delta[row0 + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full, 2 * T::QT_BYTES);
+          for (int p = 0; p < D / 64; ++p) {
+            tma_load_4d(qt + p * NQ * 128, &tq, full, 64 * p, h, q0, bi);
+            tma_load_4d(qt + T::QT_BYTES + p * NQ * 128, &tdo, full, 64 * p, h, q0, bi);
           }
-        mma_pz<D, QS>(dv, st, dOs, qs, g, t);   // dV += P^T dO
-        mma_pz<D, QS>(dk, dpt, Qs, qs, g, t);   // dK += dS^T Q
+        } else {
+          mbar_arrive(full);
+        }
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = threadIdx.x / WG_THREADS - 1, wi = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int wk0 = k0 + 64 * cw;  // this warpgroup's first key
+    const int r0 = wk0 + 16 * wi + g;  // this thread's keys: r0 and r0 + 8
+    const float sl = a.scale * LOG2E;
+    int segk[2] = {0, 0};
+    if (a.seg)
+      for (int i = 0; i < 2; ++i)
+        segk[i] = r0 + 8 * i < a.sk ? a.seg[(size_t)bi * a.sk + r0 + 8 * i] : -2;
+
+    float dk[NO], dv[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dk[e] = dv[e] = 0.f;
+    mbar_wait(bars, 0);
+
+    for (int it = 0; it < group * n_q; ++it) {
+      const int s = it % ST, q0 = q_lo + (it % n_q) * NQ;
+      const uint32_t sQ = sQT + s * 2 * T::QT_BYTES, sdO = sQ + T::QT_BYTES;
+      const float* lse2 = rowstat + s * 2 * NQ;
+      mbar_wait(bars + 8 * (1 + s), (it / ST) & 1);
+      if (!tile_dead(a, q0, NQ, wk0, 64)) {
+        float st[NQ / 2], dpt[NQ / 2];  // S^T = K Q^T, dP^T = V dO^T
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(st, kmajor_desc(sK, NK, 64 * cw, kk), kmajor_desc(sQ, NQ, 0, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(dpt, kmajor_desc(sV, NK, 64 * cw, kk), kmajor_desc(sdO, NQ, 0, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(st);
+        fence_acc(dpt);
+
+        const bool full_tile = tile_plain(a, q0, NQ, wk0, 64) && below_frontier(a, q0, wk0 + 63);
+        if (!full_tile) {
+#pragma unroll
+          for (int e = 0; e < NQ / 2; ++e) {
+            const int qi = q0 + 8 * (e >> 2) + 2 * t + (e & 1), kj = r0 + 8 * ((e >> 1) & 1);
+            const int segq = a.seg && qi < a.sq ? a.seg[(size_t)bi * a.sq + qi] : -1;
+            if (!is_live(a, qi, kj, segq, segk[(e >> 1) & 1])) st[e] = -INFINITY;
+          }
+        }
+        uint32_t pf[NQ / 16][4], dsf[NQ / 16][4];  // P^T and dS^T in bf16
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float p[2], ds[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 8 * kk + 2 * r + c, qc = 8 * (e >> 2) + 2 * t + c;
+              p[c] = exp2f(fmaf(st[e], sl, -lse2[qc]));
+              ds[c] = p[c] * (dpt[e] - lse2[NQ + qc]);
+            }
+            pf[kk][r] = pack_f2(p[0], p[1]);
+            dsf[kk][r] = pack_f2(ds[0], ds[1]);
+          }
+
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs(dv, pf[kk], mn_desc(sdO, NQ, kk));  // dV += P^T dO
+#pragma unroll
+        for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs(dk, dsf[kk], mn_desc(sQ, NQ, kk));  // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dk);
+        fence_acc(dv);
+        fence_frag(pf);
+        fence_frag(dsf);
+      }
+      if (lane == 0) mbar_arrive(bars + 8 * (1 + ST + s));
+    }
+
+    bf16* dkp = static_cast<bf16*>(a.out);
+    bf16* dvp = static_cast<bf16*>(a.out2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = r0 + 8 * i;
+      if (kj >= a.sk) continue;
+      const size_t base_j = (((size_t)bi * a.sk + kj) * a.hk + hkv) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkp + base_j + 8 * j + 2 * t) =
+            pack_f2(dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvp + base_j + 8 * j + 2 * t) =
+            pack_f2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
       }
     }
   }
-
-  bf16* dkp = static_cast<bf16*>(a.out);
-  bf16* dvp = static_cast<bf16*>(a.out2);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = k0 + r0 + g + i * 8;
-    if (kj >= a.sk) continue;
-    const size_t base = (((size_t)bi * a.sk + kj) * a.hk + hkv) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dkp + base + n * 8 + t * 2) =
-          pack_f2(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvp + base + n * 8 + t * 2) =
-          pack_f2(dv[n][2 * i], dv[n][2 * i + 1]);
-    }
-  }
 }
 
-template <int D> constexpr size_t fwd_mma_smem() {
-  return 3 * 64 * (D + 8) * sizeof(bf16) + 128 * sizeof(int);
+template <typename Kernel, typename... Maps>
+int launch_hopper(Kernel kernel, size_t smem, dim3 grid, const Args& a, void* stream,
+                  const Maps&... maps) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(maps..., a);
+  return (int)cudaGetLastError();
 }
-template <int D> constexpr size_t bwd_mma_smem() {
+
+template <int D>
+int launch_fwd_wgmma(const Args& a, void* stream) {
+  using T = FwdTiles<D>;
+  CUtensorMap tq, tk, tv;
+  if (!bshd_map(&tq, a.q, a.b, a.sq, a.hq, D, T::BM) ||
+      !bshd_map(&tk, a.k, a.b, a.sk, a.hk, D, T::BN) ||
+      !bshd_map(&tv, a.v, a.b, a.sk, a.hk, D, T::BN))
+    return ENCODE_FAILED;
+  const dim3 grid(a.b * a.hq, (a.sq + T::BM - 1) / T::BM);
+  return launch_hopper(fwd_wgmma_kernel<D>, T::SMEM, grid, a, stream, tq, tk, tv);
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a, void* stream) {
+  using T = DkvTiles<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!bshd_map(&tq, a.q, a.b, a.sq, a.hq, D, T::QROWS) ||
+      !bshd_map(&tdo, a.dout, a.b, a.sq, a.hq, D, T::QROWS) ||
+      !bshd_map(&tk, a.k, a.b, a.sk, a.hk, D, T::KEYS) ||
+      !bshd_map(&tv, a.v, a.b, a.sk, a.hk, D, T::KEYS))
+    return ENCODE_FAILED;
+  const dim3 grid(a.b * a.hk, (a.sk + T::KEYS - 1) / T::KEYS);
+  return launch_hopper(dkv_wgmma_kernel<D>, T::SMEM, grid, a, stream, tq, tk, tv, tdo);
+}
+
+template <int D> constexpr size_t dq_mma_smem() {
   return 4 * 64 * (D + 8) * sizeof(bf16) + 128 * sizeof(float) + 128 * sizeof(int);
 }
 
@@ -860,13 +1106,13 @@ int dispatch_f32(Which w, const Args& a, dim3 gq, dim3 gk, void* stream) {
   return -1;
 }
 
-// bf16 inputs: the tensor-core kernels
+// bf16 inputs: the Hopper forward and dK/dV kernels, the mma.sync dQ kernel
 template <int D>
 int dispatch_bf16(Which w, const Args& a, dim3 gq, dim3 gk, void* stream) {
   switch (w) {
-    case FWD: return launch(fwd_mma_kernel<D>, fwd_mma_smem<D>(), gq, MT, a, stream);
-    case DQ: return launch(dq_mma_kernel<D>, bwd_mma_smem<D>(), gq, MT, a, stream);
-    case DKV: return launch(dkv_mma_kernel<D>, bwd_mma_smem<D>(), gk, MT, a, stream);
+    case FWD: return launch_fwd_wgmma<D>(a, stream);
+    case DQ: return launch(dq_mma_kernel<D>, dq_mma_smem<D>(), gq, MT, a, stream);
+    case DKV: return launch_dkv_wgmma<D>(a, stream);
   }
   return -1;
 }

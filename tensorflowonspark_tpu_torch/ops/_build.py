@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles, at first use, into
 ``csrc/build/lib<name>-<hash>.so`` (gitignored), where ``<hash>`` is taken
-from the source and the flags, so an edited source never loads a stale
-library. The sources expose a plain C interface; nothing includes
+from the source, the ``csrc/*.cuh`` headers it may include and the flags,
+so an edited source or header never loads a stale library. The sources expose a plain C interface; nothing includes
 PyTorch's headers, which keeps a build to seconds. Nothing here runs at
 import: a machine without ``nvcc`` imports the package and only fails when
 a CUDA tensor reaches a kernel.
@@ -52,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed on the source, every
+    ``csrc/*.cuh`` header (in sorted order) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str, out: Path):

@@ -1,8 +1,9 @@
 """Flash attention: three hand-written CUDA kernels and their plain versions.
 
 Port of :mod:`tensorflowonspark_tpu.ops.flash_attention`. The kernels live
-in ``csrc/flash_attention.cu`` (forward, dQ, dK/dV; see the note at the top
-of that file for the bounds and the design). Beside each kernel is a plain
+in ``csrc/flash_attention.cu`` (forward, dQ, dK/dV; in bf16 the forward and
+dK/dV run on wgmma with TMA loads from ``csrc/hopper.cuh``; see the note at
+the top of the ``.cu`` for the bounds and the design). Beside each kernel is a plain
 PyTorch version of the same function, blockless and in fp32:
 
 - :func:`attention_plain` — masked softmax attention that also returns the
@@ -116,11 +117,16 @@ def _seg_arg(segment_ids, device):
     return seg, seg.data_ptr()
 
 
+# the entry points' own return codes; any other is a cudaError_t
+_LAUNCH_ERRORS = {-1: "unsupported dtype or head dim", -2: "TMA tensor map could not be encoded"}
+
+
 def _launch(fn_name, *args):
     stream = torch.cuda.current_stream().cuda_stream
     rc = _kernels()[fn_name](*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} failed to launch: CUDA error {rc}")
+        why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{fn_name} failed to launch: {why}")
 
 
 def _geometry(q, k):

@@ -130,6 +130,61 @@ def test_kernel_build_is_lazy_and_keyed_on_source():
     assert "tensorflowonspark_tpu_torch/csrc/build/" in gitignore
 
 
+def test_kernel_build_is_keyed_on_headers(monkeypatch, tmp_path):
+    """An edit to a csrc/*.cuh header changes the library's path, so a
+    source that includes it never loads a build of the old header."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text("// one\n")
+    (csrc / "b.cuh").write_text("// two\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
+    first = _build.library_path("k")
+    assert first.parent == csrc / "build" and _build.library_path("k") == first
+    (csrc / "a.cuh").write_text("// one, edited\n")
+    second = _build.library_path("k")
+    assert second != first
+    (csrc / "b.cuh").write_text("// two, edited\n")
+    assert _build.library_path("k") not in (first, second)
+    (csrc / "c.cuh").write_text("")
+    assert _build.library_path("k") not in (first, second)
+
+
+def test_profile_kinds_name_every_kernel():
+    """chip_smoke's profile puts every kernel of the port's CUDA sources
+    under its own kind, by the name the profiler prints for it."""
+    import re
+
+    smoke = _import_root_module("chip_smoke")
+    names = []
+    for path in sorted((PACKAGE / "csrc").glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                            path.read_text())
+    assert {"fwd_wgmma_kernel", "dq_mma_kernel", "dkv_wgmma_kernel", "fwd_kernel", "dq_kernel",
+            "dkv_kernel", "stats_partial_kernel", "stats_finalize_kernel"} <= set(names)
+    for name in names:
+        printed = f"void (anonymous namespace)::{name}<128>((anonymous namespace)::Args)"
+        want = "bn_stats" if name.startswith("stats_") else "flash"
+        assert smoke.kind_of_kernel(printed) == want, name
+
+
+@pytest.mark.parametrize("rc, message", [(-1, "unsupported dtype or head dim"),
+                                         (-2, "TMA tensor map could not be encoded"),
+                                         (700, "CUDA error 700")])
+def test_refused_launch_raises(monkeypatch, rc, message):
+    """A launch the C entry point refuses raises with its reason: there is
+    no fallback to the plain version."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "_kernels", lambda: {"tfos_flash_fwd": lambda *args: rc})
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("S", (), {"cuda_stream": 0}))
+    with pytest.raises(RuntimeError, match=f"tfos_flash_fwd failed to launch: {message}"):
+        fa._launch("tfos_flash_fwd", 0, 0)
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     from tensorflowonspark_tpu_torch.ops import _build
 
@@ -194,8 +249,9 @@ def test_chip_smoke_conv_helpers_rehearse_on_cpu(monkeypatch):
     assert losses == again and losses[-1] < losses[0]
 
 
-FAULTS = ["fwd_no_rescale", "dq_drop_last_k_tile", "dq_bulk_3pct", "dk_drop_last_q_tile",
-          "dv_drop_first_q_tile", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy"]
+FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
+          "dk_drop_last_q_tile", "dv_drop_first_q_tile", "dkv_frontier_unmasked",
+          "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
