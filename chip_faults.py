@@ -9,8 +9,8 @@ kernel source is changed there, and a child process builds that copy and
 runs the check of that source: ``chip_smoke.check_slice`` for
 ``csrc/flash_attention.cu`` (the three kernels against their plain
 versions at the llama_1b training shape, bf16, causal; every flash fault
-is in a bf16 kernel, the ones that shape runs: the wgmma forward and
-dK/dV kernels and the mma.sync dQ kernel) and
+is in a bf16 kernel, the ones that shape runs: the wgmma forward, dQ and
+dK/dV kernels) and
 ``chip_smoke.check_bn_edges`` for ``csrc/bn_stats.cu`` (both statistics
 kernels at the stem shape and the edge cases: ragged rows with poison past
 the end, fp32, narrow and misaligned C). The unchanged copy runs both. The
@@ -47,19 +47,26 @@ FAULTS = {
         "const bool full_tile = tile_plain(a, qw0, 64, k0, BN) && below_frontier(a, qw0, k0 + BN - 1);",
         "const bool full_tile = tile_plain(a, qw0, 64, k0, BN);",
     ),
-    # dQ: the last key tile of each query tile (the causal diagonal) is lost
+    # dQ: the last key tile of each query tile (the causal diagonal of its
+    # last 64 rows) is lost
     "dq_drop_last_k_tile": (
         FLASH,
-        "mma_pz<D, 64>(dq, s, Ks, 0, g, t);  // dQ += dS K",
-        "if (k0 + BK < k_hi) mma_pz<D, 64>(dq, s, Ks, 0, g, t);",
+        "for (int kk = 0; kk < NK / 16; ++kk) wgmma_rs(dq, dsf[kk], mn_desc(sK, NK, kk));  // dQ += dS K",
+        "if (k0 + NK < k_hi) for (int kk = 0; kk < NK / 16; ++kk) wgmma_rs(dq, dsf[kk], mn_desc(sK, NK, kk));",
     ),
     # dQ: every query tile but the first comes out 3% too large, an error
     # confined to the bulk of the rows, below their largest values
     "dq_bulk_3pct": (
         FLASH,
-        "pack_f2(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);",
-        "pack_f2(dq[n][2 * i] * a.scale * (q0 >= BQ ? 1.03f : 1.f),"
-        " dq[n][2 * i + 1] * a.scale * (q0 >= BQ ? 1.03f : 1.f));",
+        "pack_f2(dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);",
+        "pack_f2(dq[4 * j + 2 * i] * a.scale * (q0 >= NQ ? 1.03f : 1.f),"
+        " dq[4 * j + 2 * i + 1] * a.scale * (q0 >= NQ ? 1.03f : 1.f));",
+    ),
+    # dQ: the tile on the causal frontier takes the unmasked path
+    "dq_frontier_unmasked": (
+        FLASH,
+        "const bool full_tile = tile_plain(a, qw0, 64, k0, NK) && below_frontier(a, qw0, k0 + NK - 1);",
+        "const bool full_tile = tile_plain(a, qw0, 64, k0, NK);",
     ),
     # dK: the last query tile of each key tile is lost
     "dk_drop_last_q_tile": (

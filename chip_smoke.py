@@ -6,7 +6,10 @@ then train llama_1b and the BatchNorm conv nets for a few steps through them.
 Phases (one JSON line each, or more; any failure exits non-zero):
 
 1. device — the card, its power limit, torch/CUDA versions, the kernel
-   builds (one nvcc per source, all started at once).
+   builds (one nvcc per source, all started at once) and ptxas' registers
+   and spills of each kernel, by its demangled name (the bf16 flash kernels
+   are ``fwd_wgmma_kernel<64|128>``, ``dq_wgmma_kernel<64|128>`` and
+   ``dkv_wgmma_kernel<64|128>``).
 2. kernels — each flash-attention kernel (forward, dQ, dK/dV) against its
    plain PyTorch version on the card, element by element and in Frobenius
    norm (limits in ``TOL``), at the llama_1b training shape (B=8, S=1024,
@@ -156,6 +159,16 @@ def compare(a, b, rtol) -> dict:
     }
 
 
+def demangle(text: str) -> str:
+    """``text`` with its C++ symbols demangled by ``c++filt``, where the
+    machine has it; else as it is."""
+    try:
+        return subprocess.run(["c++filt"], input=text, capture_output=True, text=True,
+                              timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return text
+
+
 def phase_device(build):
     t0 = time.perf_counter()
     build.build(["flash_attention", "bn_stats"])  # compiles what is not built, in parallel
@@ -164,7 +177,7 @@ def phase_device(build):
     for name in ("flash_attention", "bn_stats"):
         log = build.library_path(name).with_suffix(".log")
         ptxas[name] = [
-            line.strip() for line in (log.read_text() if log.exists() else "").splitlines()
+            line.strip() for line in demangle(log.read_text() if log.exists() else "").splitlines()
             if any(w in line for w in ("entry function", "registers", "spill", "warning"))
         ]
     emit({
@@ -330,7 +343,7 @@ def phase_kernels(fa):
 
 
 KINDS = (  # (kind, substrings of the kernel's name), first match wins
-    ("flash", ("fwd_wgmma_kernel", "dq_mma_kernel", "dkv_wgmma_kernel", "::fwd_kernel",
+    ("flash", ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel", "::fwd_kernel",
                "::dq_kernel", "::dkv_kernel")),
     ("bn_stats", ("stats_partial_kernel", "stats_finalize_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),

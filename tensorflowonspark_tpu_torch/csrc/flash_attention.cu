@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of tensorflowonspark_tpu/ops/flash_attention.py:
 //   fwd_wgmma_kernel / fwd_kernel  <- _fwd_kernel  (flash_attention.py:134, pallas_call :303)
-//   dq_mma_kernel    / dq_kernel   <- _dq_kernel   (flash_attention.py:343, pallas_call :550)
+//   dq_wgmma_kernel  / dq_kernel   <- _dq_kernel   (flash_attention.py:343, pallas_call :550)
 //   dkv_wgmma_kernel / dkv_kernel  <- _dkv_kernel  (flash_attention.py:400, pallas_call :600)
 // (the first of each pair for bf16 inputs, the second for fp32).
 //
@@ -21,16 +21,15 @@
 // statistics cross HBM, and each input tile is read once per block that
 // needs it.
 //
-// Three implementations share the masks and the tile skipping:
-//   - bf16 forward and dK/dV (the training path): warp-specialised blocks
-//     of one TMA producer warpgroup and two wgmma consumer warpgroups over
-//     a ring of shared-memory stages completed on mbarriers (hopper.cuh and
-//     the section "bf16 forward (B1) and dK/dV (B3)" below). Only wgmma
-//     reaches the card's dense bf16 rate, TMA moves a tile with no thread's
-//     loads or registers, and the ring overlaps the next tile's copy with
-//     the current tile's products. Wholly live tiles skip the mask.
-//   - bf16 dQ: mma.sync m16n8k16 from padded shared tiles, loads between
-//     two __syncthreads() (not yet redesigned).
+// Two implementations share the masks and the tile skipping:
+//   - bf16 (the training path): warp-specialised blocks of one TMA
+//     producer warpgroup and two wgmma consumer warpgroups over a ring of
+//     shared-memory stages completed on mbarriers (hopper.cuh and the
+//     section "bf16 forward (B1), dQ (B2) and dK/dV (B3)" below). Only
+//     wgmma reaches the card's dense bf16 rate, TMA moves a tile with no
+//     thread's loads or registers, and the ring overlaps the next tile's
+//     copy with the current tile's products. Wholly live tiles skip the
+//     mask.
 //   - fp32 inputs run fp32 FMA tiles, exact to fp32 rounding.
 // On the tensor cores P and dS are rounded to bf16 before their products,
 // as FlashAttention-2 and -3 do.
@@ -38,11 +37,12 @@
 // Design (one block owns one output tile and loops over the other axis;
 // nothing is carried across blocks, since Hopper runs blocks in no order):
 //   - fwd, dQ: a block owns (batch*q-head, query rows: 128 in the wgmma
-//     forward, 64 otherwise) and streams the key tiles of its KV head. GQA
+//     kernels, 64 in fp32) and streams the key tiles of its KV head. GQA
 //     is index arithmetic on the KV head, with no repeat of K/V. The wgmma
-//     forward's grid runs the last query tiles, the heaviest under causal
-//     masking, first: grid (B*Hq, Sq/128), one block (384 threads, 225 KB
-//     of shared memory at D=128: Q and three K/V stages) per SM.
+//     grids run the last query tiles, the heaviest under causal masking,
+//     first: grid (B*Hq, Sq/128), one block (384 threads) per SM, with
+//     225 KB of shared memory at D=128 in the forward (Q and three K/V
+//     stages) and 193 KB in dQ (Q, dO and four 64-key K/V stages).
 //   - dK/dV: a block owns (batch*kv-head, keys: 128 in the wgmma kernel,
 //     64 otherwise) and streams the query tiles of every q head of its GQA
 //     group, so the group sum of flash_attention.py:626-632 happens in fp32
@@ -218,8 +218,6 @@ __device__ __forceinline__ void query_range(const Args& a, int k0, int& lo, int&
   lo = (lo / bq) * bq;
 }
 
-// (The two loaders below cover their 64 entries with threads 0..63, so
-// they serve the 256-thread and the 128-thread blocks alike.)
 __device__ __forceinline__ void load_seg(int* dst, const Args& a, int bi, int s0, int S, int fill) {
   if (a.seg == nullptr) return;
   for (int t = threadIdx.x; t < 64; t += NT)
@@ -485,185 +483,7 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate). A block has 4 warps; each warp owns 16 query rows of the
-// block's 64. Tiles
-// stay bf16 in shared memory with a row stride of D + 8 elements, so the
-// fragment loads of a warp hit 32 distinct banks. Score tiles never leave
-// registers: the accumulator layout of S (or P, dS) is reused as the A
-// operand of the next product, rounded to bf16 as FlashAttention-2 does.
-// ---------------------------------------------------------------------------
-
-constexpr int MT = 128;  // threads of an mma block (4 warps)
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_h2(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// (64, D) bf16 tile of rows s0.. of head h into shared memory (row stride
-// D + 8), 16 bytes per load; rows past S are 0.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int b, int s0,
-                                               int S, int H, int h) {
-  constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int e = threadIdx.x; e < 64 * VPR; e += MT) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    const int s = s0 + r;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (s < S) x = *reinterpret_cast<const uint4*>(src + (((size_t)b * S + s) * H + h) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = x;
-  }
-}
-
-// acc[j] (j < N/8) = X[r0.., :] Y[n0 + 8j.., :]^T over the D columns:
-// A rows r0..r0+15 of X, B[k][n] = Y[n][k] (both row-major, stride D + 8).
-template <int D, int N>
-__device__ __forceinline__ void mma_xyt(float acc[N / 8][4], const bf16* X, int r0,
-                                        const bf16* Y, int n0, int g, int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int k0 = kk * 16 + t * 2;
-    uint32_t a[4];
-    a[0] = ld32(X + (r0 + g) * LD + k0);
-    a[1] = ld32(X + (r0 + g + 8) * LD + k0);
-    a[2] = ld32(X + (r0 + g) * LD + k0 + 8);
-    a[3] = ld32(X + (r0 + g + 8) * LD + k0 + 8);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const bf16* y = Y + (n0 + j * 8 + g) * LD + k0;
-      mma16816(acc[j], a, ld32(y), ld32(y + 8));
-    }
-  }
-}
-
-// acc[n] (n < D/8) += P Z[z0.., :], with P a (16, K) tile held in the
-// accumulator layout p[K/8][4] (rounded to bf16 here) and B[k][n] = Z[z0+k][n].
-template <int D, int K>
-__device__ __forceinline__ void mma_pz(float acc[D / 8][4], const float p[K / 8][4],
-                                       const bf16* Z, int z0, int g, int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_f2(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_f2(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_f2(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_f2(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* z = Z + (z0 + kk * 16 + t * 2) * LD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* zn = z + n * 8;
-      mma16816(acc[n], a, pack_h2(zn[0], zn[LD]), pack_h2(zn[8 * LD], zn[9 * LD]));
-    }
-  }
-}
-
-// A live entry of a row that has a live key at all (LSE above NEG_INF).
-__device__ __forceinline__ bool live_entry(const Args& a, float lse, int qi, int kj, int seg_i,
-                                           int seg_j) {
-  return lse > NEG_INF / 2 && is_live(a, qi, kj, seg_i, seg_j);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MT) dq_mma_kernel(Args a) {
-  constexpr int LD = D + 8;
-  extern __shared__ float smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + 64 * LD;
-  bf16* Ks = dOs + 64 * LD;
-  bf16* Vs = Ks + 64 * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + 64 * LD);
-  float* delta_s = lse_s + 64;
-  int* segq = reinterpret_cast<int*>(delta_s + 64);
-  int* segk = segq + 64;
-
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int bi = bh / a.hq, h = bh % a.hq;
-  const int hkv = h / (a.hq / a.hk);
-  const int r0 = w * 16;
-
-  load_tile_bf16<D>(Qs, static_cast<const bf16*>(a.q), bi, q0, a.sq, a.hq, h);
-  load_tile_bf16<D>(dOs, static_cast<const bf16*>(a.dout), bi, q0, a.sq, a.hq, h);
-  load_row_stats(lse_s, delta_s, a, bh, q0);
-  load_seg(segq, a, bi, q0, a.sq, -1);
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  int k_lo, k_hi;
-  key_range(a, q0, k_lo, k_hi);
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    load_tile_bf16<D>(Ks, static_cast<const bf16*>(a.k), bi, k0, a.sk, a.hk, hkv);
-    load_tile_bf16<D>(Vs, static_cast<const bf16*>(a.v), bi, k0, a.sk, a.hk, hkv);
-    load_seg(segk, a, bi, k0, a.sk, -2);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_xyt<D, 64>(s, Qs, r0, Ks, 0, g, t);
-    mma_xyt<D, 64>(dp, dOs, r0, Vs, 0, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + g + (e >> 1) * 8, c = j * 8 + t * 2 + (e & 1);
-        const bool ok = live_entry(a, lse_s[r], q0 + r, k0 + c, a.seg ? segq[r] : 0,
-                                   a.seg ? segk[c] : 0);
-        const float p = ok ? expf(s[j][e] * a.scale - lse_s[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - delta_s[r]);  // dS
-      }
-    mma_pz<D, 64>(dq, s, Ks, 0, g, t);  // dQ += dS K
-  }
-
-  bf16* out = static_cast<bf16*>(a.out);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + r0 + g + i * 8;
-    if (qi >= a.sq) continue;
-    bf16* row = out + (((size_t)bi * a.sq + qi) * a.hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + t * 2) =
-          pack_f2(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 forward (B1) and dK/dV (B3) on Hopper's asynchronous units.
+// bf16 forward (B1), dQ (B2) and dK/dV (B3) on Hopper's asynchronous units.
 //
 // A block is three warpgroups. Warpgroup 0 is the producer: one thread
 // issues TMA tile loads into a ring of shared-memory stages, each stage
@@ -672,7 +492,7 @@ __global__ void __launch_bounds__(MT) dq_mma_kernel(Args a) {
 // a stage's full barrier, run their products with wgmma (fp32 accumulators
 // in registers), and release the stage on its "empty" barrier (one arrival
 // per consumer warp). Score tiles never leave registers: the accumulator
-// of S (or P^T, dS^T), rounded to bf16, is the A operand of the next
+// of S (or dS, P^T, dS^T), rounded to bf16, is the A operand of the next
 // product (the wgmma RS form). The same swizzled tile is read K-major by
 // one product and MN-major by the next (hopper.cuh).
 //
@@ -689,6 +509,13 @@ constexpr int WG_THREADS = 128;
 constexpr int HOPPER_THREADS = 3 * WG_THREADS;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128*24 + 256*240 <= 65536
 constexpr int ENCODE_FAILED = -2;  // the TMA tensor map could not be encoded
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // Rows [i0, i0 + ni) and keys [j0, j0 + nj) all in range and inside the
 // window, with no segments: everything of is_live but the causal frontier.
@@ -714,6 +541,27 @@ __device__ __forceinline__ bool tile_dead(const Args& a, int i0, int ni, int j0,
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   const uint32_t s = smem_u32(raw);
   return raw + (((s + 1023) & ~1023u) - s);
+}
+
+// The producer thread's K/V stream (B1, B2): n_tiles tiles of NK keys of KV
+// head hkv, from key k_lo on. Tile `it` goes into stage s = it % ST (K at
+// sKV + 2 s KV_BYTES, V after it) once the consumers have released that
+// stage; full[ST] are the barriers at bars + 8, empty[ST] follow them.
+template <int D, int NK, int ST>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                           uint32_t sKV, uint32_t bars, int k_lo, int n_tiles,
+                                           int hkv, int bi) {
+  constexpr uint32_t KV_BYTES = NK * D * 2;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST, k0 = k_lo + it * NK;
+    const uint32_t full = bars + 8 * (1 + s), kv = sKV + s * 2 * KV_BYTES;
+    mbar_wait(bars + 8 * (1 + ST + s), ((it / ST) & 1) ^ 1);
+    mbar_arrive_expect_tx(full, 2 * KV_BYTES);
+    for (int p = 0; p < D / 64; ++p) {
+      tma_load_4d(kv + p * NK * 128, tk, full, 64 * p, hkv, k0, bi);
+      tma_load_4d(kv + KV_BYTES + p * NK * 128, tv, full, 64 * p, hkv, k0, bi);
+    }
+  }
 }
 
 // B1: a block owns 128 query rows of one (batch, q head), 64 per consumer
@@ -758,16 +606,7 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(bars, T::Q_BYTES);
       for (int p = 0; p < D / 64; ++p) tma_load_4d(sQ + p * BM * 128, &tq, bars, 64 * p, h, q0, bi);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % ST, k0 = k_lo + it * BN;
-        const uint32_t full = bars + 8 * (1 + s), kv = sKV + s * 2 * T::KV_BYTES;
-        mbar_wait(bars + 8 * (1 + ST + s), ((it / ST) & 1) ^ 1);
-        mbar_arrive_expect_tx(full, 2 * T::KV_BYTES);
-        for (int p = 0; p < D / 64; ++p) {
-          tma_load_4d(kv + p * BN * 128, &tk, full, 64 * p, hkv, k0, bi);
-          tma_load_4d(kv + T::KV_BYTES + p * BN * 128, &tv, full, 64 * p, hkv, k0, bi);
-        }
-      }
+      produce_kv<D, BN, ST>(&tk, &tv, sKV, bars, k_lo, n_tiles, hkv, bi);
     }
   } else {  // consumers
     setmaxnreg_inc<CONSUMER_REGS>();
@@ -860,6 +699,150 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
         *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
             pack_f2(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
       if (t == 0) a.lse_out[(size_t)bh * a.sq + qi] = dead ? NEG_INF : m[i] * LN2 + logf(l[i]);
+    }
+  }
+}
+
+// B2: a block owns 128 query rows of one (batch, q head), 64 per consumer
+// warpgroup. Q and dO stay resident; KEYS-key K/V tiles of its KV head
+// stream through STAGES stages. Per tile, S = Q K^T and dP = dO V^T
+// (K-major, one commit), dS = P * (dP - delta) in registers, then
+// dQ += dS K with dS the register A operand and the same K tile read
+// MN-major. Each consumer thread keeps its two rows' LSE (times log2 e)
+// and delta in registers. Key tiles are 64 wide, not B1's 128: a
+// warpgroup then skips the diagonal tile past its own rows, and 128-key
+// tiles (S, dP and dQ: 192 accumulator registers a thread) spilled.
+template <int D>
+struct DqTiles {
+  static constexpr int QROWS = 128, KEYS = 64, STAGES = 4;
+  static constexpr uint32_t QT_BYTES = QROWS * D * 2, KV_BYTES = KEYS * D * 2;
+  // alignment slack, Q, dO, STAGES x (K, V), barriers
+  static constexpr size_t SMEM = 1024 + 2 * QT_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const Args a) {
+  using T = DqTiles<D>;
+  constexpr int NQ = T::QROWS, NK = T::KEYS, ST = T::STAGES, NO = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = smem_u32(aligned_smem(smem_raw)), sdO = sQ + T::QT_BYTES;
+  const uint32_t sKV = sdO + T::QT_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
+  const uint32_t bars = sKV + ST * 2 * T::KV_BYTES;  // Q/dO full, full[ST], empty[ST]
+
+  const int bh = blockIdx.x, bi = bh / a.hq, h = bh % a.hq, hkv = h / (a.hq / a.hk);
+  const int q0 = ((a.sq + NQ - 1) / NQ - 1 - (int)blockIdx.y) * NQ;  // last (heaviest) first
+  int k_lo, k_hi;
+  key_range(a, q0, k_lo, k_hi, NQ, NK);
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + NK - 1) / NK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 8 * (1 + s), 1);
+      mbar_init(bars + 8 * (1 + ST + s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {  // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bars, 2 * T::QT_BYTES);
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load_4d(sQ + p * NQ * 128, &tq, bars, 64 * p, h, q0, bi);
+        tma_load_4d(sdO + p * NQ * 128, &tdo, bars, 64 * p, h, q0, bi);
+      }
+      produce_kv<D, NK, ST>(&tk, &tv, sKV, bars, k_lo, n_tiles, hkv, bi);
+    }
+  } else {  // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = threadIdx.x / WG_THREADS - 1, wi = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int qw0 = q0 + 64 * cw;  // this warpgroup's first query row
+    const int r0 = qw0 + 16 * wi + g;  // this thread's rows: r0 and r0 + 8
+    const float sl = a.scale * LOG2E;
+    int segq[2] = {0, 0};
+    float lse2[2], dlt[2];
+    for (int i = 0; i < 2; ++i) {
+      const int qi = r0 + 8 * i;
+      const bool in = qi < a.sq;
+      const float lse = in ? a.lse[(size_t)bh * a.sq + qi] : NEG_INF;
+      lse2[i] = lse > NEG_INF / 2 ? lse * LOG2E : INFINITY;  // a dead row's P: exp2(-inf) = 0
+      dlt[i] = in ? a.delta[(size_t)bh * a.sq + qi] : 0.f;
+      if (a.seg) segq[i] = in ? a.seg[(size_t)bi * a.sq + qi] : -1;
+    }
+
+    float dq[NO];
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dq[e] = 0.f;
+    mbar_wait(bars, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % ST, k0 = k_lo + it * NK;
+      const uint32_t sK = sKV + s * 2 * T::KV_BYTES, sV = sK + T::KV_BYTES;
+      mbar_wait(bars + 8 * (1 + s), (it / ST) & 1);
+      if (!tile_dead(a, qw0, 64, k0, NK)) {
+        float sc[NK / 2], dp[NK / 2];  // S = Q K^T, dP = dO V^T
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(sc, kmajor_desc(sQ, NQ, 64 * cw, kk), kmajor_desc(sK, NK, 0, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(dp, kmajor_desc(sdO, NQ, 64 * cw, kk), kmajor_desc(sV, NK, 0, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sc);
+        fence_acc(dp);
+
+        const bool full_tile = tile_plain(a, qw0, 64, k0, NK) && below_frontier(a, qw0, k0 + NK - 1);
+        if (!full_tile) {
+#pragma unroll
+          for (int e = 0; e < NK / 2; ++e) {
+            const int r = r0 + 8 * ((e >> 1) & 1), c = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            const int segk = a.seg && c < a.sk ? a.seg[(size_t)bi * a.sk + c] : -2;
+            if (!is_live(a, r, c, segq[(e >> 1) & 1], segk)) sc[e] = -INFINITY;
+          }
+        }
+        uint32_t dsf[NK / 16][4];  // dS in bf16, the A operand of dS K
+#pragma unroll
+        for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float ds[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 8 * kk + 2 * r + c;
+              ds[c] = exp2f(fmaf(sc[e], sl, -lse2[r & 1])) * (dp[e] - dlt[r & 1]);
+            }
+            dsf[kk][r] = pack_f2(ds[0], ds[1]);
+          }
+
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NK / 16; ++kk) wgmma_rs(dq, dsf[kk], mn_desc(sK, NK, kk));  // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dq);
+        fence_frag(dsf);
+      }
+      if (lane == 0) mbar_arrive(bars + 8 * (1 + ST + s));
+    }
+
+    bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = r0 + 8 * i;
+      if (qi >= a.sq) continue;
+      bf16* row = out + (((size_t)bi * a.sq + qi) * a.hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+            pack_f2(dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
     }
   }
 }
@@ -1045,33 +1028,42 @@ int launch_hopper(Kernel kernel, size_t smem, dim3 grid, const Args& a, void* st
   return (int)cudaGetLastError();
 }
 
+// The tensor maps of q (and dO, unless tdo is null) with boxes of qrows rows
+// and of k and v with boxes of keys rows; false if one cannot be encoded.
+template <int D>
+bool encode_maps(const Args& a, int qrows, int keys, CUtensorMap* tq, CUtensorMap* tk,
+                 CUtensorMap* tv, CUtensorMap* tdo) {
+  return bshd_map(tq, a.q, a.b, a.sq, a.hq, D, qrows) &&
+         bshd_map(tk, a.k, a.b, a.sk, a.hk, D, keys) &&
+         bshd_map(tv, a.v, a.b, a.sk, a.hk, D, keys) &&
+         (tdo == nullptr || bshd_map(tdo, a.dout, a.b, a.sq, a.hq, D, qrows));
+}
+
 template <int D>
 int launch_fwd_wgmma(const Args& a, void* stream) {
   using T = FwdTiles<D>;
   CUtensorMap tq, tk, tv;
-  if (!bshd_map(&tq, a.q, a.b, a.sq, a.hq, D, T::BM) ||
-      !bshd_map(&tk, a.k, a.b, a.sk, a.hk, D, T::BN) ||
-      !bshd_map(&tv, a.v, a.b, a.sk, a.hk, D, T::BN))
-    return ENCODE_FAILED;
+  if (!encode_maps<D>(a, T::BM, T::BN, &tq, &tk, &tv, nullptr)) return ENCODE_FAILED;
   const dim3 grid(a.b * a.hq, (a.sq + T::BM - 1) / T::BM);
   return launch_hopper(fwd_wgmma_kernel<D>, T::SMEM, grid, a, stream, tq, tk, tv);
+}
+
+template <int D>
+int launch_dq_wgmma(const Args& a, void* stream) {
+  using T = DqTiles<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_maps<D>(a, T::QROWS, T::KEYS, &tq, &tk, &tv, &tdo)) return ENCODE_FAILED;
+  const dim3 grid(a.b * a.hq, (a.sq + T::QROWS - 1) / T::QROWS);
+  return launch_hopper(dq_wgmma_kernel<D>, T::SMEM, grid, a, stream, tq, tk, tv, tdo);
 }
 
 template <int D>
 int launch_dkv_wgmma(const Args& a, void* stream) {
   using T = DkvTiles<D>;
   CUtensorMap tq, tk, tv, tdo;
-  if (!bshd_map(&tq, a.q, a.b, a.sq, a.hq, D, T::QROWS) ||
-      !bshd_map(&tdo, a.dout, a.b, a.sq, a.hq, D, T::QROWS) ||
-      !bshd_map(&tk, a.k, a.b, a.sk, a.hk, D, T::KEYS) ||
-      !bshd_map(&tv, a.v, a.b, a.sk, a.hk, D, T::KEYS))
-    return ENCODE_FAILED;
+  if (!encode_maps<D>(a, T::QROWS, T::KEYS, &tq, &tk, &tv, &tdo)) return ENCODE_FAILED;
   const dim3 grid(a.b * a.hk, (a.sk + T::KEYS - 1) / T::KEYS);
   return launch_hopper(dkv_wgmma_kernel<D>, T::SMEM, grid, a, stream, tq, tk, tv, tdo);
-}
-
-template <int D> constexpr size_t dq_mma_smem() {
-  return 4 * 64 * (D + 8) * sizeof(bf16) + 128 * sizeof(float) + 128 * sizeof(int);
 }
 
 template <int D> constexpr size_t fwd_smem() {
@@ -1095,9 +1087,11 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, const Args& a, vo
 
 enum Which { FWD, DQ, DKV };
 
-// fp32 inputs: the FMA kernels
+// fp32 inputs: the FMA kernels, 64-row tiles
 template <int D>
-int dispatch_f32(Which w, const Args& a, dim3 gq, dim3 gk, void* stream) {
+int dispatch_f32(Which w, const Args& a, void* stream) {
+  const dim3 gq((a.sq + BQ - 1) / BQ, a.b * a.hq);
+  const dim3 gk((a.sk + BK - 1) / BK, a.b * a.hk);
   switch (w) {
     case FWD: return launch(fwd_kernel<D>, fwd_smem<D>(), gq, NT, a, stream);
     case DQ: return launch(dq_kernel<D>, dq_smem<D>(), gq, NT, a, stream);
@@ -1106,12 +1100,12 @@ int dispatch_f32(Which w, const Args& a, dim3 gq, dim3 gk, void* stream) {
   return -1;
 }
 
-// bf16 inputs: the Hopper forward and dK/dV kernels, the mma.sync dQ kernel
+// bf16 inputs: the Hopper kernels (TMA producer, wgmma consumers)
 template <int D>
-int dispatch_bf16(Which w, const Args& a, dim3 gq, dim3 gk, void* stream) {
+int dispatch_bf16(Which w, const Args& a, void* stream) {
   switch (w) {
     case FWD: return launch_fwd_wgmma<D>(a, stream);
-    case DQ: return launch(dq_mma_kernel<D>, dq_mma_smem<D>(), gq, MT, a, stream);
+    case DQ: return launch_dq_wgmma<D>(a, stream);
     case DKV: return launch_dkv_wgmma<D>(a, stream);
   }
   return -1;
@@ -1119,12 +1113,10 @@ int dispatch_bf16(Which w, const Args& a, dim3 gq, dim3 gk, void* stream) {
 
 // dtype 0 = float32, 1 = bfloat16
 int dispatch(Which w, int dtype, int d, const Args& a, void* stream) {
-  const dim3 gq((a.sq + BQ - 1) / BQ, a.b * a.hq);
-  const dim3 gk((a.sk + BK - 1) / BK, a.b * a.hk);
-  if (dtype == 0 && d == 64) return dispatch_f32<64>(w, a, gq, gk, stream);
-  if (dtype == 0 && d == 128) return dispatch_f32<128>(w, a, gq, gk, stream);
-  if (dtype == 1 && d == 64) return dispatch_bf16<64>(w, a, gq, gk, stream);
-  if (dtype == 1 && d == 128) return dispatch_bf16<128>(w, a, gq, gk, stream);
+  if (dtype == 0 && d == 64) return dispatch_f32<64>(w, a, stream);
+  if (dtype == 0 && d == 128) return dispatch_f32<128>(w, a, stream);
+  if (dtype == 1 && d == 64) return dispatch_bf16<64>(w, a, stream);
+  if (dtype == 1 && d == 128) return dispatch_bf16<128>(w, a, stream);
   return -1;
 }
 

@@ -1,9 +1,9 @@
 """Flash attention: three hand-written CUDA kernels and their plain versions.
 
 Port of :mod:`tensorflowonspark_tpu.ops.flash_attention`. The kernels live
-in ``csrc/flash_attention.cu`` (forward, dQ, dK/dV; in bf16 the forward and
-dK/dV run on wgmma with TMA loads from ``csrc/hopper.cuh``; see the note at
-the top of the ``.cu`` for the bounds and the design). Beside each kernel is a plain
+in ``csrc/flash_attention.cu`` (forward, dQ, dK/dV; in bf16 all three run
+on wgmma with TMA loads from ``csrc/hopper.cuh``; see the note at the top
+of the ``.cu`` for the bounds and the design). Beside each kernel is a plain
 PyTorch version of the same function, blockless and in fp32:
 
 - :func:`attention_plain` — masked softmax attention that also returns the

@@ -4,6 +4,7 @@ points run on CUDA unless told otherwise."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -156,19 +157,50 @@ def test_kernel_build_is_keyed_on_headers(monkeypatch, tmp_path):
 def test_profile_kinds_name_every_kernel():
     """chip_smoke's profile puts every kernel of the port's CUDA sources
     under its own kind, by the name the profiler prints for it."""
-    import re
-
     smoke = _import_root_module("chip_smoke")
     names = []
     for path in sorted((PACKAGE / "csrc").glob("*.cu")):
         names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
                             path.read_text())
-    assert {"fwd_wgmma_kernel", "dq_mma_kernel", "dkv_wgmma_kernel", "fwd_kernel", "dq_kernel",
+    assert {"fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel", "fwd_kernel", "dq_kernel",
             "dkv_kernel", "stats_partial_kernel", "stats_finalize_kernel"} <= set(names)
     for name in names:
         printed = f"void (anonymous namespace)::{name}<128>((anonymous namespace)::Args)"
         want = "bn_stats" if name.startswith("stats_") else "flash"
         assert smoke.kind_of_kernel(printed) == want, name
+
+
+def _body(source: str, signature: str) -> str:
+    """The brace-delimited body that follows the first match of ``signature``."""
+    start = source.index("{", re.search(signature, source).end())
+    depth = 0
+    for i in range(start, len(source)):
+        depth += {"{": 1, "}": -1}.get(source[i], 0)
+        if depth == 0:
+            return source[start:i + 1]
+    raise AssertionError(f"unbalanced body after {signature}")
+
+
+def test_bf16_dispatch_runs_only_hopper_kernels():
+    """Static guard of the bf16 flash dispatch, whose kernels run only on
+    the card: dQ goes to the wgmma kernel, no mma.sync instruction is left,
+    and every kernel the bf16 dispatch reaches is launched with the
+    producer/consumer block of HOPPER_THREADS."""
+    source = (PACKAGE / "csrc" / "flash_attention.cu").read_text()
+    dispatch = _body(source, r"int dispatch_bf16\(")
+    cases = dict(re.findall(r"case (\w+): return (\w+)<D>\(", dispatch))
+    assert cases == {"FWD": "launch_fwd_wgmma", "DQ": "launch_dq_wgmma",
+                     "DKV": "launch_dkv_wgmma"}
+    assert "mma.sync" not in source and "dq_mma_kernel" not in source
+    launch_hopper = _body(source, r"int launch_hopper\(")
+    assert "<<<grid, HOPPER_THREADS, smem," in launch_hopper
+    for launcher in cases.values():
+        body = _body(source, rf"int {launcher}\(")
+        kernels = re.findall(r"return launch_hopper\((\w+)<D>,", body)
+        assert len(kernels) == 1, launcher
+        assert re.search(rf"__global__ void __launch_bounds__\(HOPPER_THREADS, 1\)\s+"
+                         rf"{kernels[0]}\(", source), kernels[0]
+    assert source.count("<<<") == 2  # launch_hopper's and the fp32 kernels' launch
 
 
 @pytest.mark.parametrize("rc, message", [(-1, "unsupported dtype or head dim"),
@@ -250,8 +282,8 @@ def test_chip_smoke_conv_helpers_rehearse_on_cpu(monkeypatch):
 
 
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
-          "dk_drop_last_q_tile", "dv_drop_first_q_tile", "dkv_frontier_unmasked",
-          "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy"]
+          "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
+          "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
