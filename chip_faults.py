@@ -18,7 +18,14 @@ at 4 layers for ``feed/prefetch.py`` and ``compute/checkpoint.py`` (the
 node runtime: every device batch against its host checksum, with the
 prefetcher's copy stream held back so that a staging slot is reused while
 its copy may still be pending, and a restored checkpoint against the
-state saved before the step that followed the async save). The unchanged
+state saved before the step that followed the async save), and
+``chip_smoke.phase_mesh`` at 4 layers and ResNet-50 at batch 32 for the
+mesh routes of ``ops/attention.py``, ``ops/bn_kernels.py`` and the sharded
+restore of ``compute/checkpoint.py`` (the kernels' launches and the mesh
+routes' counts per step, and a sharded checkpoint restored bit for bit).
+Faults that show only across ranks (a dropped ``all_reduce``, a rank's
+rows lost from an uneven split) cannot show on one card; the CPU tests
+plant those at 2 ranks (``tests/test_torch_mesh.py``). The unchanged
 copy runs every check once. The children run at once. Each prints its check lines; this script prints one
 JSON line per fault with the readings of the last, and exits non-zero
 unless the checks pass the unchanged sources and refuse every fault.
@@ -38,9 +45,14 @@ FLASH = Path("tensorflowonspark_tpu_torch/csrc/flash_attention.cu")
 BN = Path("tensorflowonspark_tpu_torch/csrc/bn_stats.cu")
 PREFETCH = Path("tensorflowonspark_tpu_torch/feed/prefetch.py")
 CKPT = Path("tensorflowonspark_tpu_torch/compute/checkpoint.py")
+ATTENTION = Path("tensorflowonspark_tpu_torch/ops/attention.py")
+BN_ROUTE = Path("tensorflowonspark_tpu_torch/ops/bn_kernels.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
+MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
-          CKPT: CLUSTER_CHECK}
+          CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK}
+# faults whose check is not their source's
+FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK}
 
 # name -> (source, statement as in the source, the faulty statement)
 FAULTS = {
@@ -128,7 +140,32 @@ FAULTS = {
         "host = _host_copy(flat, self._pinned)",
         "host = flat",
     ),
+    # attention's mesh route runs the plain attention on each shard
+    # instead of the flash kernels
+    "mesh_attention_plain": (
+        ATTENTION,
+        "return flash_attention(q, k, v, causal, scale, window, seg)",
+        "return _xla_attention(q, k, v, causal=causal, scale=scale, segment_ids=seg, window=window)",
+    ),
+    # the sharded restore reads the params but leaves the optimizer state
+    "mesh_restore_skips_opt_state": (
+        CKPT,
+        "dcp.load(want, checkpoint_id=path)",
+        'dcp.load({k: v for k, v in want.items() if "opt_state" not in k}, checkpoint_id=path)',
+    ),
+    # the batch-norm mesh route sums each rank's rows with the plain
+    # versions instead of the kernels
+    "mesh_bn_plain": (
+        BN_ROUTE,
+        "s, q = stats_fn(*local)",
+        's, q = (pair_stats_plain if kind == "pair" else cross_stats_plain)(*map(as_2d, local))',
+    ),
 }
+
+
+def check_of(name: str) -> str:
+    """The chip_smoke check that must refuse fault ``name``."""
+    return FAULT_CHECKS.get(name) or CHECKS[FAULTS[name][0]]
 
 CHILD = """
 import os, chip_smoke
@@ -156,7 +193,10 @@ def start(name: str, workdir: Path) -> subprocess.Popen:
     sources = list(CHECKS) if name == "none" else [FAULTS[name][0]]
     for source in sources:
         (copy / source).write_text(planted((ROOT / source).read_text(), name))
-    checks = dict.fromkeys(CHECKS[source] for source in sources)  # each check once
+    if name == "none":  # each check once
+        checks = dict.fromkeys([*CHECKS.values(), *FAULT_CHECKS.values()])
+    else:
+        checks = [check_of(name)]
     code = CHILD + "".join(f"chip_smoke.{check}\n" for check in checks)
     return subprocess.Popen([sys.executable, "-c", code], cwd=copy, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)

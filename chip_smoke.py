@@ -66,10 +66,30 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    losses are equal. Reports ``step_ms`` beside phase train's, the
    prefetcher's stats and wait per step, and the checkpoint's GB and
    seconds (snapshot, write, restore).
+8. mesh — the mesh path on the card, a world of one (an NCCL group of one
+   over a mesh whose six axes have extent 1, so DTensor, ``local_map`` and
+   the kernels' mesh routes all run and no collective moves data):
+   llama_1b at full width and depth with ``remat_policy="dots"`` through
+   ``llama_param_shardings`` → ``shard_state`` → ``build_train_step(...,
+   mesh, zero_sharding=True)`` on phase train's weights and batch (one
+   warm-up, 5 timed steps; the 6 losses against phase train's within
+   ``MESH_LOSS_RTOL``; per step 32 forward launches, the 16 of the forward
+   and the 16 of the 'dots' recompute, 16 dQ and 16 dK/dV; the attention
+   mesh route taken once a layer a step), two profiled steps beside phase
+   train's profile; ``build_update_step`` alone on fixed gradients (event
+   and device ms per call); ResNet-50 at batch 256 through the mesh BN step
+   (one warm-up, 3 timed; losses against phase conv_train's first four; 53
+   launches of each statistics kernel a step, all through
+   ``mesh_pair_stats``/``mesh_cross_stats``); and a node launched by
+   ``tfcluster.run`` that trains llama_1b on ``ctx.mesh()`` fed by
+   ``DevicePrefetcher.from_feed(mesh=…)``, saves the mesh state sharded,
+   restores it into a state from seed 1 and takes one more step from each
+   (every restored tensor bit-equal, the two losses equal).
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
-sum over its 53 BatchNorm layers), the ``nvidia-smi`` name and power
+sum over its 53 BatchNorm layers; ``mesh_launches`` counts phase mesh's
+timed steps), the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -405,19 +425,23 @@ def profile_steps(run_step, n=2, model=None):
         dev_us = getattr(evt, "self_device_time_total", 0) or 0
         if evt.key == WEIGHT_UPDATE_SCOPE:
             update_ms = (getattr(evt, "device_time_total", 0) or 0) / 1e3 / n
+        elif evt.key.startswith("train."):
+            continue  # a span's range (train.step#N): its device time is its kernels'
         elif dev_us > 0 and "CUDA" in str(evt.device_type):
             kind = kind_of_kernel(evt.key)
             kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3 / n
             kernels.append((dev_us / 1e3 / n, evt.count // n, kind, evt.key[:90]))
     busy = sum(kinds.values())
     kernels.sort(reverse=True)
-    emit({"phase": "profile", "model": model, "steps": n, "wall_ms_per_step": wall_ms / n,
+    line = {"phase": "profile", "model": model, "steps": n, "wall_ms_per_step": wall_ms / n,
           "device_busy_ms_per_step": busy, "device_idle_share": 1 - busy * n / wall_ms,
           "device_ms_by_kind": kinds, "weight_update_device_ms": update_ms,
           "top_kernels": [dict(ms=k[0], launches=k[1], kind=k[2], name=k[3])
                           for k in kernels[:15]],
           "port_kernels": [dict(ms=k[0], launches=k[1], name=k[3]) for k in kernels
-                           if k[2] in ("flash", "bn_stats")]})
+                           if k[2] in ("flash", "bn_stats")]}
+    emit(line)
+    return line
 
 
 def phase_train(fa):
@@ -487,8 +511,8 @@ def phase_train(fa):
         nonlocal state
         state, _ = step(state, batch)
 
-    profile_steps(run_step, model="llama_1b")
-    return launches, step_s * 1e3
+    prof = profile_steps(run_step, model="llama_1b")
+    return launches, step_s * 1e3, {"losses": losses, "profile": prof}
 
 
 # where the bn and conv phases run (a CPU rehearsal at tiny sizes sets "cpu")
@@ -790,6 +814,7 @@ def phase_conv_train(bn):
     if not ok:
         raise SystemExit("conv_train failed: resnet50")
     main_launches = launches
+    main_losses = losses
     profile_steps(run.advance, model="resnet50")
     del run, model
     torch.cuda.empty_cache()
@@ -815,7 +840,7 @@ def phase_conv_train(bn):
             raise SystemExit(f"conv_train failed: {name}")
         del run, model
         torch.cuda.empty_cache()
-    return main_launches
+    return main_launches, main_losses
 
 
 # phase cluster: batch, sequence, batches pulled while the copy stream is
@@ -1043,6 +1068,381 @@ def phase_cluster(train_step_ms=None, layers=16, rehearse=None):
         raise SystemExit("cluster phase failed")
 
 
+# phase mesh: llama_1b and ResNet-50 through the mesh step, the weight update
+# alone, and a node that trains on its mesh and restores a sharded checkpoint
+MESH = dict(batch=8, seq=1024, steps=5, lr=1e-4, update_calls=10, conv_batch=256,
+            conv_steps=3, depth=4)
+# The mesh step at world 1 against phase train's plain step on the same
+# weights and batch: both run the same kernels and products on the same
+# values (DTensor at extent 1 moves nothing; 'dots' recomputes what it drops
+# with the same deterministic kernels). Both the llama and the ResNet-50
+# losses read equal to the last bit on the H100 (PERF.md, Findings); the
+# limit leaves room only for another choice of library kernel.
+MESH_LOSS_RTOL = 1e-5
+
+
+def mesh_llama(cfg, mesh, seed, lr, device):
+    """A Llama of ``cfg`` from ``seed`` on ``mesh`` through the port's mesh
+    path: the 'llama' table's placements, ``shard_state`` (ZeRO, the params
+    put into the model) and the mesh ``build_train_step``."""
+    from tensorflowonspark_tpu_torch.compute import TrainState, adamw, build_train_step
+    from tensorflowonspark_tpu_torch.compute.train import shard_state
+    from tensorflowonspark_tpu_torch.models.llama import (Llama, llama_loss_fn,
+                                                          llama_param_shardings)
+
+    model = Llama(cfg, device=device, seed=seed)
+    psh = llama_param_shardings(dict(model.named_parameters()), mesh)
+    tx = adamw(lr, moment_dtype=torch.bfloat16)
+    state = shard_state(TrainState.create(model.named_parameters(), tx), mesh, psh,
+                        zero_sharding=True, module=model)
+    loss_fn = llama_loss_fn(model)
+    step = build_train_step(lambda p, b: loss_fn(p, b["tokens"]), tx, mesh, psh,
+                            zero_sharding=True)
+    return model, psh, tx, state, step
+
+
+def mesh_cfg(layers, tiny, seq):
+    from tensorflowonspark_tpu_torch.models.llama import LlamaConfig
+
+    if tiny:  # the CPU rehearsal: plain versions of the kernels, fp32
+        return LlamaConfig.tiny(max_seq_len=seq, remat=True, remat_policy="dots",
+                                dtype=torch.float32, attention_impl="flash")
+    return LlamaConfig.llama_1b(max_seq_len=seq, remat=True, remat_policy="dots",
+                                attention_impl="auto", num_layers=layers)
+
+
+def full(t):
+    """A DTensor gathered whole, on the host."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().to("cpu", copy=True)
+
+
+def mesh_check(name, err, tol, ok):
+    emit({"phase": "mesh", "case": name, "err": err, "tol": tol, "ok": ok})
+    if not ok:
+        raise SystemExit(f"mesh phase failed: {name}")
+
+
+def phase_mesh(fa, bn, ref=None, layers=16, conv_batch=None, rehearse=None):
+    """The mesh path on one card, a world of one (see the module docstring,
+    phase 8); raises SystemExit when a check fails. ``ref`` holds phase
+    train's and phase conv_train's losses and profile to compare with;
+    ``layers`` and ``conv_batch`` cut the sizes (chip_faults.py);
+    ``rehearse`` (``sizes``, ``device="cpu"``) runs it at a tiny size on the
+    CPU, where the wrappers take their plain versions."""
+    import torch.distributed as dist
+
+    rehearse = rehearse or {}
+    owns_group = not dist.is_initialized()
+    try:
+        return _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse)
+    finally:  # a group this phase started ends with it, failed or not
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse):
+    from tensorflowonspark_tpu_torch.compute.mesh import make_mesh, shard_batch
+    from tensorflowonspark_tpu_torch.compute.train import build_update_step, place
+    from tensorflowonspark_tpu_torch.parallel.context import MESH_ROUTES, reset_mesh_routes
+
+    c = {**MESH, **rehearse.get("sizes", {})}
+    device = rehearse.get("device", "cuda")
+    cuda = device == "cuda"
+    mesh = make_mesh(device_type=device)
+    group = torch.distributed
+    result = {"world": group.get_world_size(), "backend": group.get_backend(),
+              "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+
+    # 1. llama through the mesh step
+    cfg = mesh_cfg(layers, not cuda, c["seq"])
+    model, psh, tx, state, step = mesh_llama(cfg, mesh, 0, c["lr"], device)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"] + 1),
+                                     device=device, generator=gen)}
+    batch = shard_batch(mesh, batch)
+    state, loss0 = step(state, batch)  # warm-up
+    sync_on(cuda)
+    fa.reset_launches()
+    reset_mesh_routes()
+    losses, dispatch = [], []
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        t1 = time.perf_counter()
+        state, loss = step(state, batch)
+        dispatch.append(time.perf_counter() - t1)
+        losses.append(loss)
+    sync_on(cuda)
+    step_ms = (time.perf_counter() - t0) / c["steps"] * 1e3
+    launches = dict(fa.LAUNCHES)
+    routes = dict(MESH_ROUTES)
+    losses = [loss0.item()] + [x.item() for x in losses]
+    per_step = {k: v / c["steps"] for k, v in launches.items()}
+    want = {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers} if cuda \
+        else {"fwd": 0, "dq": 0, "dkv": 0}
+    ref_losses = (ref or {}).get("train_losses")
+    gap = None if ref_losses is None else max(
+        abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    emit({"phase": "mesh", "part": "llama", "config": "llama_1b" if cuda else "tiny",
+          "layers": cfg.num_layers, "remat_policy": cfg.remat_policy, "batch": c["batch"],
+          "seq": c["seq"], "n_params": n_params, **result, "steps": c["steps"],
+          "losses": losses, "train_phase_losses": ref_losses, "max_rel_loss_gap": gap,
+          "step_ms": step_ms, "train_phase_step_ms": (ref or {}).get("train_step_ms"),
+          "dispatch_ms_per_step": sum(dispatch) / len(dispatch) * 1e3,
+          "tokens_per_s": c["batch"] * c["seq"] / step_ms * 1e3,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+          "launches": launches, "launches_per_step": per_step, "mesh_routes": routes})
+    mesh_check("llama_mesh_step", {"launches_per_step": per_step, "attention_routes":
+                                   routes["attention"], "max_rel_loss_gap": gap},
+               {"launches_per_step": want, "max_rel_loss_gap": MESH_LOSS_RTOL},
+               # the route runs in the forward and again in the 'dots' recompute
+               per_step == want and routes["attention"] == 2 * cfg.num_layers * c["steps"]
+               and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+               and (gap is None or gap <= MESH_LOSS_RTOL))
+    flash_mesh_launches = launches
+    if cuda:
+        def run_step():
+            nonlocal state
+            state, _ = step(state, batch)
+
+        prof = profile_steps(run_step, model="llama_1b_mesh")
+        train_prof = (ref or {}).get("train_profile") or {}
+        keys = ("wall_ms_per_step", "device_busy_ms_per_step", "device_idle_share")
+        emit({"phase": "mesh", "part": "llama_profile", **{k: prof[k] for k in keys},
+              "host_exposed_ms_per_step": prof[keys[0]] - prof[keys[1]],
+              "train_phase": {k: train_prof.get(k) for k in keys}})
+
+    # 2. the weight update alone, on fixed gradients
+    upd = build_update_step(tx, mesh, psh, zero_sharding=True)
+    g = torch.Generator(device=device).manual_seed(3)
+    grads = {n: place(torch.randn(p.shape, generator=g, device=device) * 1e-3, psh[n])
+             for n, p in state.params.items()}
+    held = {"state": state}
+
+    def update():
+        held["state"] = upd(held["state"], grads)
+
+    if cuda:
+        upd_ms = time_ms(update, iters=c["update_calls"])
+        upd_dev_ms = device_ms(update, iters=c["update_calls"])
+    else:
+        for _ in range(2):
+            update()
+        upd_ms = upd_dev_ms = None
+    emit({"phase": "mesh", "part": "update_step", "calls": c["update_calls"], "ms": upd_ms,
+          "device_ms": upd_dev_ms, "n_params": n_params})
+    del model, state, step, held, grads, upd, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 3. ResNet-50 through the mesh step
+    bn_mesh_launches = phase_mesh_conv(bn, mesh, ref, conv_batch or c["conv_batch"], c, cuda)
+
+    # 4. a node trains on its mesh and restores a sharded checkpoint
+    phase_mesh_node(layers, rehearse)
+    return flash_mesh_launches, bn_mesh_launches
+
+
+def sync_on(cuda):
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def phase_mesh_conv(bn, mesh, ref, b, c, cuda):
+    """ResNet-50 (a tiny ResNet in the rehearsal) through the mesh BN step:
+    the 'resnet' table's placements, BatchNorm auto, the statistics through
+    the mesh route."""
+    from tensorflowonspark_tpu_torch.compute import TrainState, sgd
+    from tensorflowonspark_tpu_torch.compute.train import build_bn_train_step, shard_state
+    from tensorflowonspark_tpu_torch.models import resnet
+    from tensorflowonspark_tpu_torch.ops.batch_norm import FusedBatchNorm, set_impl
+    from tensorflowonspark_tpu_torch.parallel.context import MESH_ROUTES, reset_mesh_routes
+
+    device = "cuda" if cuda else "cpu"
+    cfg = resnet.ResNetConfig.resnet50() if cuda else resnet.ResNetConfig.tiny(dtype=torch.float32)
+    size = 224 if cuda else 32
+    model = resnet.ResNet(cfg, device=device, seed=0)
+    if not cuda:
+        set_impl(model, "kernel")  # the mesh route with the plain versions
+    n_bn = sum(isinstance(m, FusedBatchNorm) for m in model.modules())
+    tx = sgd(0.1, momentum=0.9)
+    psh = resnet.resnet_param_shardings(dict(model.named_parameters()), mesh)
+    state = shard_state(TrainState.create(model.named_parameters(), tx), mesh, psh, module=model)
+    step = build_bn_train_step(resnet.loss_fn(model), tx, mesh, psh)
+    stats = {n: t.clone() for n, t in model.named_buffers()}
+    g = torch.Generator(device=device).manual_seed(0)
+    batch = {"image": torch.randn(b, size, size, 3, generator=g, device=device),
+             "label": torch.randint(0, cfg.num_classes, (b,), generator=g, device=device)}
+    state, stats, loss0 = step(state, stats, batch)  # warm-up
+    sync_on(cuda)
+    bn.reset_launches()
+    reset_mesh_routes()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(c["conv_steps"]):
+        state, stats, loss = step(state, stats, batch)
+        losses.append(loss)
+    sync_on(cuda)
+    step_ms = (time.perf_counter() - t0) / c["conv_steps"] * 1e3
+    launches, routes = dict(bn.LAUNCHES), dict(MESH_ROUTES)
+    losses = [loss0.item()] + [x.item() for x in losses]
+    ref_losses = (ref or {}).get("conv_losses") if b == MESH["conv_batch"] else None
+    gap = None if ref_losses is None else max(
+        abs(x - y) / abs(y) for x, y in zip(losses, ref_losses))
+    want = n_bn * c["conv_steps"]
+    emit({"phase": "mesh", "part": "resnet", "config": "resnet50" if cuda else "tiny",
+          "batch": b, "image": size, "steps": c["conv_steps"], "losses": losses,
+          "conv_train_phase_losses": ref_losses, "max_rel_loss_gap": gap, "step_ms": step_ms,
+          "images_per_s": b / step_ms * 1e3, "bn_layers": n_bn, "launches": launches,
+          "mesh_routes": routes})
+    mesh_check("resnet_mesh_step",
+               {"launches": launches, "bn_routes": [routes["bn_pair"], routes["bn_cross"]],
+                "max_rel_loss_gap": gap},
+               {"launches": want if cuda else 0, "bn_routes": want,
+                "max_rel_loss_gap": MESH_LOSS_RTOL},
+               [launches["pair"], launches["cross"]] == ([want] * 2 if cuda else [0, 0])
+               and [routes["bn_pair"], routes["bn_cross"]] == [want] * 2
+               and all(math.isfinite(x) for x in losses)
+               and (gap is None or gap <= MESH_LOSS_RTOL))
+    del model, state, step, stats, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_node(args, ctx):
+    """map_fun of phase mesh's node (module level, so spawn pickles it by
+    name): the example's mesh path, fed through the prefetcher."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.compute.checkpoint import (
+        CheckpointManager, chief_final_save, restore_latest)
+    from tensorflowonspark_tpu_torch.feed.prefetch import DevicePrefetcher
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    c = {**MESH, **args.get("sizes", {})}
+    device = ctx.device
+    cuda = device.type == "cuda"
+    cfg = mesh_cfg(args["layers"], not cuda, c["seq"])
+    mesh = ctx.mesh()
+    model, _, _, state, step = mesh_llama(cfg, mesh, 0, c["lr"], device.type)
+    host_sums, dev_sums = [], []
+
+    def host_checksum(cols):  # producer thread, before staging
+        host_sums.append(int(cols["tokens"].sum(dtype=np.int64)))
+        return cols
+
+    def pull(pf):
+        batch = next(pf)
+        dev_sums.append(batch["tokens"].to_local().sum(dtype=torch.int64))
+        return batch
+
+    feed = ctx.get_data_feed(input_mapping={"tokens": "tokens"})
+    pf = DevicePrefetcher.from_feed(feed, c["batch"], mesh=mesh, depth=c["depth"],
+                                    prepare=host_checksum)
+    state, loss0 = step(state, pull(pf))  # warm-up
+    sync_on(cuda)
+    fa.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        state, loss = step(state, pull(pf))
+        losses.append(loss)
+    sync_on(cuda)
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    nxt = pull(pf)
+    sync_on(cuda)
+    pf.close()
+    dev_sums = [int(x) for x in dev_sums]
+
+    saved_step = state.step
+    t1 = time.perf_counter()
+    saved = {k: full(v) for k, v in state_tensors(state).items()}
+    snapshot_s = time.perf_counter() - t1
+    ckpt_dir = tempfile.mkdtemp(prefix="tfos_mesh_ckpt_")
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(saved_step, state)
+    timing = dict(mgr.last_save)
+    state, next_loss = step(state, nxt)
+    next_loss = next_loss.item()
+    chief_final_save(mgr, state, saved_step, ctx.is_chief)
+    ckpt_gb = sum(f.stat().st_size for f in os.scandir(mgr.step_path(saved_step))) / 1e9
+    del state, model, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    model2, _, _, fresh, step2 = mesh_llama(cfg, mesh, 1, c["lr"], device.type)
+    t2 = time.perf_counter()
+    got_step, restored = restore_latest(CheckpointManager(ckpt_dir), fresh)
+    sync_on(cuda)
+    restore_s = time.perf_counter() - t2
+    unequal = [k for k, v in state_tensors(restored).items()
+               if v.dtype != saved[k].dtype or not torch.equal(full(v), saved[k])]
+    _, restored_loss = step2(restored, nxt)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    result = {
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size, "batch": c["batch"], "seq": c["seq"],
+        "device": str(device), "backend": dist.get_backend(), "world": dist.get_world_size(),
+        "losses": [loss0.item()] + [x.item() for x in losses],
+        "step_ms": dt / c["steps"] * 1e3,
+        "launches_per_step": {k: v / c["steps"] for k, v in launches.items()},
+        "batches_checked": len(dev_sums), "host_sums": len(host_sums),
+        "bad_batches": [i for i, (h, d) in enumerate(zip(host_sums, dev_sums)) if h != d],
+        "checkpoint": {"gb": ckpt_gb, "host_copy_s": snapshot_s, **timing,
+                       "restore_s": restore_s, "saved_step": saved_step,
+                       "restored_step": got_step, "restored_state_step": restored.step,
+                       "tensors": len(saved), "unequal": unequal[:10], "n_unequal": len(unequal)},
+        "next_loss_saved": next_loss, "next_loss_restored": restored_loss.item(),
+    }
+    with open(os.path.join(args["out_dir"], f"node{ctx.executor_id}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_mesh_node(layers=16, rehearse=None):
+    from tensorflowonspark_tpu_torch.cluster import tfcluster
+    from tensorflowonspark_tpu_torch.cluster.tfcluster import InputMode
+
+    rehearse = rehearse or {}
+    args = {"layers": layers, "device": rehearse.get("device", "cuda"),
+            "sizes": rehearse.get("sizes", {})}
+    cuda = args["device"] == "cuda"
+    c = {**MESH, **args["sizes"]}
+    n_batches = 1 + c["steps"] + 1
+    rows = cluster_rows(n_batches * c["batch"], c["seq"], c.get("vocab", 32000), seed=2)
+    out_dir = tempfile.mkdtemp(prefix="tfos_mesh_")
+    args["out_dir"] = out_dir
+    t0 = time.perf_counter()
+    cpu_env = {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    cluster = tfcluster.run(mesh_node, args, num_executors=1, input_mode=InputMode.SPARK,
+                            distributed=True, reservation_timeout=600,
+                            env=None if cuda else cpu_env)
+    cluster.train(tfcluster.contiguous_split(rows, 4), feed_timeout=600, close_feed=True)
+    cluster.shutdown(timeout=900)  # raises with the node's traceback if it failed
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "node0.json")) as f:
+        r = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ck = r["checkpoint"]
+    want = {"fwd": 2 * r["layers"], "dq": r["layers"], "dkv": r["layers"]} if cuda \
+        else {"fwd": 0, "dq": 0, "dkv": 0}
+    err = {
+        "bad_batches": len(r["bad_batches"]), "batches_checked": r["batches_checked"],
+        "launches_per_step": r["launches_per_step"], "restored_unequal": ck["n_unequal"],
+        "step_agrees": ck["restored_step"] == ck["saved_step"] == ck["restored_state_step"],
+        "next_loss_gap": abs(r["next_loss_saved"] - r["next_loss_restored"]),
+    }
+    emit({"phase": "mesh", "part": "node", **r, "wall_s": wall_s,
+          "nvidia_smi": nvidia_smi() if cuda else None})
+    mesh_check("mesh_node", err, {"bad_batches": 0, "launches_per_step": want,
+                                  "restored_unequal": 0, "next_loss_gap": 0.0},
+               err["bad_batches"] == 0 and r["batches_checked"] == n_batches == r["host_sums"]
+               and r["launches_per_step"] == want and err["restored_unequal"] == 0
+               and err["step_agrees"] and err["next_loss_gap"] == 0.0
+               and all(math.isfinite(x) for x in r["losses"])
+               and r["backend"] == ("nccl" if cuda else "gloo") and r["world"] == 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1053,22 +1453,31 @@ def main() -> int:
 
     phase_device(_build)
     rows = phase_kernels(fa)
-    launches, train_step_ms = phase_train(fa)
+    launches, train_step_ms, train = phase_train(fa)
     torch.cuda.empty_cache()
     bn_rows = phase_bn_kernels(bn)
     phase_bn_layer()
-    bn_launches = phase_conv_train(bn)
+    bn_launches, conv_losses = phase_conv_train(bn)
     phase_cluster(train_step_ms)
+    t0 = time.perf_counter()
+    mesh_flash, mesh_bn = phase_mesh(fa, bn, ref={
+        "train_losses": train["losses"], "train_step_ms": train_step_ms,
+        "train_profile": train["profile"], "conv_losses": conv_losses})
+    emit({"phase": "mesh", "wall_s": time.perf_counter() - t0})
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[kind], "launches": launches[kind], **rows[kind]}
+         "replaces": REPLACES[kind], "launches": launches[kind],
+         "mesh_launches": mesh_flash[kind], **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
-         "replaces": REPLACES[kind], "launches": bn_launches[kind], **bn_rows[kind]}
+         "replaces": REPLACES[kind], "launches": bn_launches[kind],
+         "mesh_launches": mesh_bn[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -19,10 +19,11 @@ Port of :mod:`tensorflowonspark_tpu.cluster.context`. Changes from it:
   gloo when the node runs on the CPU. The device is the context's
   ``device`` (from :func:`device_of_args`: CUDA unless the node's args
   name another); :meth:`shutdown_distributed` leaves the group.
-- :meth:`membership`, :meth:`reinitialize_distributed` and :meth:`mesh`
-  raise ``NotImplementedError`` (elastic membership and the device mesh
-  are ROADMAP A8), as does :meth:`get_ingest_feed` (the pull plane is
-  ROADMAP A12).
+- :meth:`mesh` builds a ``DeviceMesh`` over the process group's ranks
+  (``compute.mesh.make_mesh``) on the node's device type.
+- :meth:`membership` and :meth:`reinitialize_distributed` raise
+  ``NotImplementedError`` (elastic membership is ROADMAP A8b), as does
+  :meth:`get_ingest_feed` (the pull plane is ROADMAP A12).
 - :meth:`export_saved_model` writes the port's torch checkpoint.
 """
 
@@ -203,15 +204,24 @@ class TFNodeContext:
 
     # --- elastic membership ----------------------------------------------
     def membership(self) -> tuple[int, list[dict[str, Any]]]:
-        raise NotImplementedError("elastic membership is not ported yet: ROADMAP A8")
+        raise NotImplementedError("elastic membership is not ported yet: ROADMAP A8b")
 
     def reinitialize_distributed(
         self, roster: list[dict[str, Any]]
     ) -> None:
-        raise NotImplementedError("elastic membership is not ported yet: ROADMAP A8")
+        raise NotImplementedError("elastic membership is not ported yet: ROADMAP A8b")
 
     def mesh(self, axis_shapes: dict[str, int] | None = None):
-        raise NotImplementedError("the device mesh is not ported yet: ROADMAP A8")
+        """Build the device mesh for this cluster (every rank of the
+        process group, on the node's device type).
+
+        Delegates to :func:`tensorflowonspark_tpu_torch.compute.mesh.make_mesh`;
+        defaults to pure data-parallel over every rank.
+        """
+        from tensorflowonspark_tpu_torch import resolve_device
+        from tensorflowonspark_tpu_torch.compute.mesh import make_mesh
+
+        return make_mesh(axis_shapes, device_type=resolve_device(self.device).type)
 
     def metrics_writer(self, log_dir: str | None = None):
         """Per-node step-metrics writer (SURVEY.md §5.5).

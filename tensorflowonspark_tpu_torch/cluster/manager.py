@@ -94,10 +94,25 @@ class ManagerHandle:
             stop_event.set()
         listener = getattr(self._server, "listener", None)
         if listener is not None:
+            # multiprocessing's accepter loop retries a failed accept() at
+            # once, and a closed listener fails every time: the first
+            # connection attempt after the close would spin it at 100 % CPU
+            # for the life of the process. Park it on a listener that never
+            # returns, then release the port.
+            self._server.listener = _ParkedListener()
             try:
-                listener.close()  # unblock the accepter thread
+                listener.close()
             except OSError:
                 pass
+
+
+class _ParkedListener:
+    """Stands in for a stopped server's listener: ``accept`` never returns."""
+
+    _never = threading.Event()
+
+    def accept(self):
+        self._never.wait()
 
 
 def start(

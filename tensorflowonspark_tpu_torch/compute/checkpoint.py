@@ -26,10 +26,17 @@ orbax checkpoints. The contract is the same; the format is the port's:
   CPU) and synchronizes on that copy before it returns; only the file
   write runs on a background thread. The next step may then change the
   tensors without tearing the checkpoint.
-- **Processes.** The port's state is not sharded across processes yet
-  (ROADMAP A8): every process holds a whole replica, so only the chief
-  saves (:func:`saves_on_this_process`) and the final-save decision needs
-  no collective.
+- **Processes.** A state of plain tensors is a whole replica in every
+  process, so only the chief saves it (:func:`saves_on_this_process`).
+- **Sharded state.** A state that holds DTensors (placed on a device mesh
+  by ``compute.train.shard_state``) is saved by every rank together with
+  ``torch.distributed.checkpoint``: each rank writes its own shards into
+  the step's temporary directory (a name every rank derives alike), then
+  rank 0 writes ``tree.json`` and, last, the marker, and renames the
+  directory. Such a save is synchronous: it has returned on every rank
+  when the step is committed. Restore reads the shards into the target's
+  own placements, on a mesh of another shape or into plain tensors in one
+  process, as the JAX package's orbax restore reshards.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ _STATE_FILE = "state.pt"
 _TREE_FILE = "tree.json"
 _METRICS_FILE = "metrics.json"
 _MARKER = "_CHECKPOINT_METADATA"
+_SHARDED_FILE = ".metadata"  # torch.distributed.checkpoint's index of the shards
 _tmp_ids = itertools.count()
 
 
@@ -251,6 +259,8 @@ def _restore_into(path: str, target: Any | None) -> Any:
     if not checkpoint_complete(path):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
     spec = _read_spec(path)
+    if os.path.exists(os.path.join(path, _SHARDED_FILE)):
+        return _restore_sharded(path, spec, target)
     stored = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
                         weights_only=True, mmap=True)
     if target is None:
@@ -279,11 +289,104 @@ def _restore_into(path: str, target: Any | None) -> Any:
     return _like(target, spec)
 
 
+# -- sharded states (DTensors) ---------------------------------------------------
+
+
+def is_sharded(state: Any) -> bool:
+    """Whether ``state`` holds DTensors (a state placed on a mesh)."""
+    from tensorflowonspark_tpu_torch.parallel.context import is_dtensor
+
+    flat: dict = {}
+    _flatten(state, "", flat)
+    return any(is_dtensor(t) for t in flat.values())
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _write_sharded(path: str, spec: dict, flat: dict, metrics: dict | None, force: bool) -> None:
+    """Every rank writes its shards of ``flat`` into the step's temporary
+    directory; rank 0 then writes the spec and the marker and commits."""
+    import torch.distributed.checkpoint as dcp
+
+    parent, name = os.path.split(path.rstrip("/"))
+    tmp = os.path.join(parent, f"{name}{_TMP_MARK}sharded")
+    rank = _rank()
+    if rank == 0:
+        os.makedirs(parent or ".", exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    _barrier()
+    dcp.save(flat, checkpoint_id=tmp)
+    if rank == 0:
+        with open(os.path.join(tmp, _TREE_FILE), "w") as f:
+            json.dump(spec, f)
+        if metrics is not None:
+            with open(os.path.join(tmp, _METRICS_FILE), "w") as f:
+                json.dump(metrics, f)
+        with open(os.path.join(tmp, _MARKER), "w") as f:
+            json.dump({"format": "tensorflowonspark_tpu_torch", "sharded": True,
+                       "time": time.time()}, f)
+        if os.path.exists(path):
+            if not force:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise FileExistsError(f"checkpoint {path} exists (pass force=True)")
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    _barrier()
+
+
+def _restore_sharded(path: str, spec: dict, target: Any | None) -> Any:
+    """Read a sharded step into ``target``'s tensors, in their own
+    placements (DTensors on any mesh, or plain tensors)."""
+    import torch.distributed.checkpoint as dcp
+
+    if target is None:
+        raise ValueError(f"checkpoint {path} is sharded: restore it into a target")
+    stored = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    want: dict = {}
+    target_spec = _flatten(target, "", want)
+    names, target_names = _shape_of(spec), _shape_of(target_spec)
+    for a, b in zip(names + [None], target_names + [None]):
+        if a != b:
+            raise ValueError(
+                f"checkpoint {path} does not match the target: first "
+                f"difference at {a!r} (stored) vs {b!r} (target)"
+            )
+    for p, t in want.items():
+        meta = stored.get(p)
+        if meta is None or not hasattr(meta, "size"):
+            raise ValueError(f"checkpoint {path}: {p!r} is not a tensor there")
+        if tuple(meta.size) != tuple(t.shape) or meta.properties.dtype != t.dtype:
+            raise ValueError(
+                f"checkpoint {path}: {p!r} is {meta.properties.dtype} {tuple(meta.size)} "
+                f"but the target's is {t.dtype} {tuple(t.shape)}"
+            )
+    with torch.no_grad():
+        dcp.load(want, checkpoint_id=path)
+    return _like(target, spec)
+
+
 def save_checkpoint(path: str, state: Any, force: bool = True) -> str:
     """Synchronously write ``state`` (any tree of tensors) to ``path``."""
     path = _abs(path)
     flat: dict = {}
     spec = _flatten(state, "", flat)
+    if is_sharded(state):
+        with obs_spans.span("train.checkpoint"):
+            _IO_RETRY.call(lambda: _write_sharded(path, spec, flat, None, force),
+                           retry_on=_IO_RETRYABLE, site="checkpoint.save")
+        return path
     with obs_spans.span("train.checkpoint"):
         host = _host_copy(flat)
 
@@ -383,6 +486,8 @@ class CheckpointManager:
             self.wait()  # the previous write owns the host buffers
             flat: dict = {}
             spec = _flatten(state, "", flat)
+            if is_sharded(state):
+                return self._save_sharded(step, spec, flat, metrics)
             t0 = time.perf_counter()
             host = _host_copy(flat, self._pinned)
             self.last_save = {"snapshot_s": time.perf_counter() - t0}
@@ -413,6 +518,22 @@ class CheckpointManager:
             self._thread = threading.Thread(target=background, daemon=True,
                                             name=f"checkpoint-{step}")
             self._thread.start()
+        return True
+
+    def _save_sharded(self, step: int, spec: dict, flat: dict, metrics) -> bool:
+        """Every rank's shards, written before this returns (see the
+        module docstring); ``last_save`` has the write's seconds."""
+        t0 = time.perf_counter()
+
+        def do_save():
+            failpoint("checkpoint.save")
+            _write_sharded(self.step_path(step), spec, flat, metrics, force=True)
+
+        _IO_RETRY.call(do_save, retry_on=_IO_RETRYABLE, site="checkpoint.save")
+        if _rank() == 0:
+            self._retain()
+        _barrier()
+        self.last_save = {"snapshot_s": None, "write_s": time.perf_counter() - t0}
         return True
 
     def _retain(self) -> None:
@@ -540,19 +661,18 @@ def hydration_restore(directory: str, target: Any):
         return step, state
 
 
-def saves_on_this_process(is_chief: bool) -> bool:
-    """Which processes must call ``save`` (and ``wait``): the chief only.
-    Every process of the port holds a whole replica of the state (there is
-    no cross-process sharding until ROADMAP A8), and concurrent saves of
-    it to one directory would race. Gate *logging* on ``is_chief`` as
-    well; the JAX package's multi-controller rule (every process saves its
-    shards) returns with sharded state."""
-    return is_chief
+def saves_on_this_process(is_chief: bool, state: Any = None) -> bool:
+    """Which processes must call ``save`` (and ``wait``): every process
+    for a sharded ``state`` (each writes its shards, the JAX package's
+    multi-controller rule), else the chief only, since each process holds
+    a whole replica and concurrent saves of it to one directory would
+    race. Gate *logging* on ``is_chief`` either way."""
+    return is_chief or (state is not None and is_sharded(state))
 
 
 def _final_save_needed(ckpt: CheckpointManager, step: int) -> bool:
-    """Whether the final save still needs to run: only the chief decides
-    and saves (see :func:`saves_on_this_process`), so no collective."""
+    """Whether the final save still needs to run, read from the step
+    directories (the same answer on every process that saves)."""
     return ckpt.latest_step() != step
 
 
@@ -564,8 +684,9 @@ def chief_final_save(
     ``run_with_restarts`` relaunch or an in-loop interval save) already
     landed this step (``force=True`` also makes a redundant save on a
     stale-FS miss an overwrite, not an error). Every process closes the
-    manager (which waits for the write)."""
-    if saves_on_this_process(is_chief):
+    manager (which waits for the write). A sharded state is saved by every
+    process, which all read the same directory to decide."""
+    if saves_on_this_process(is_chief, state):
         ckpt.wait()  # async in-loop saves may still be landing
         if _final_save_needed(ckpt, step):
             ckpt.save(step, state, force=True)

@@ -195,18 +195,38 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
 def warmup_cosine_decay_schedule(
     init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
-    end_value: float = 0.0,
+    end_value: float = 0.0, exponent: float = 1.0,
 ) -> Callable:
-    """optax's schedule of the same name: linear from ``init_value`` to
-    ``peak_value`` over ``warmup_steps``, then cosine down to ``end_value``
-    at ``decay_steps`` (which counts the warm-up), constant after."""
+    """optax's schedule of the same name (0.2.6), step for step: linear
+    from ``init_value`` to ``peak_value`` over ``warmup_steps`` (none when
+    that is 0 or less), then cosine down to ``end_value`` at
+    ``decay_steps`` (which counts the warm-up), constant after. Values are
+    fp32, as optax's. Like optax it raises ``ValueError`` unless
+    ``decay_steps > warmup_steps``; and as optax's ``alpha = end/peak``
+    reads 0 for a peak of 0, such a schedule is 0 after the warm-up."""
+    cos_steps = decay_steps - warmup_steps
+    if not cos_steps > 0:
+        raise ValueError(
+            "The cosine_decay_schedule requires positive decay_steps, got "
+            f"decay_steps={cos_steps} (decay_steps {decay_steps} - warmup_steps {warmup_steps})."
+        )
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    f32 = torch.float32
+
+    def warm(c):
+        if warmup_steps <= 0:
+            return torch.full_like(c, init_value)
+        frac = 1 - c.clamp(0, warmup_steps) / torch.tensor(float(warmup_steps), dtype=f32)
+        return (init_value - peak_value) * frac + peak_value
+
+    def cosine(c):
+        c = torch.minimum(c, torch.tensor(float(cos_steps), dtype=f32, device=c.device))
+        decay = 0.5 * (1 + torch.cos(torch.pi * c / cos_steps))
+        return peak_value * ((1 - alpha) * decay**exponent + alpha)
 
     def schedule(count):
-        c = count.float() if isinstance(count, torch.Tensor) else torch.tensor(float(count))
-        warm = init_value + (peak_value - init_value) * c / max(warmup_steps, 1)
-        frac = ((c - warmup_steps) / max(decay_steps - warmup_steps, 1)).clamp(0.0, 1.0)
-        cos = end_value + (peak_value - end_value) * 0.5 * (1 + torch.cos(torch.pi * frac))
-        return torch.where(c < warmup_steps, warm, cos)
+        c = count.to(f32) if isinstance(count, torch.Tensor) else torch.tensor(float(count), dtype=f32)
+        return torch.where(c < warmup_steps, warm(c), cosine(c - warmup_steps))
 
     return schedule
 
@@ -250,6 +270,12 @@ def mixed_precision_adamw(
 @torch.no_grad()
 def apply_updates(params, updates) -> None:
     """``p ← (p + u)`` cast to p's dtype, in place: the port updates the
-    params where they lie instead of allocating a second copy."""
+    params where they lie instead of allocating a second copy. An update
+    laid out otherwise than its DTensor param (the ZeRO update layout) is
+    gathered to the param's placements first."""
     for name, p in params.items():
-        p.copy_(p + updates[name])
+        u = updates[name]
+        placements = getattr(p, "placements", None)
+        if placements is not None and tuple(u.placements) != tuple(placements):
+            u = u.redistribute(p.device_mesh, placements)
+        p.copy_(p + u)

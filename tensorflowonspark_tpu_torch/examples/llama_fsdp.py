@@ -1,26 +1,30 @@
 """Llama training on the port's cluster: the counterpart of the JAX
 package's ``examples/llama/llama_fsdp.py``.
 
-Each node trains the port's :class:`~tensorflowonspark_tpu_torch.models.
-llama.Llama` on one device (CUDA unless ``--cpu``) through
-``build_train_step`` with ``adamw(moment_dtype=bf16)`` by default, resumes
-from ``--model-dir`` with ``restore_latest``, saves every ``--save-every``
-steps with ``CheckpointManager`` and at the end with ``chief_final_save``,
-and prints the same per-node line as the JAX example: step ms, tokens/s
-and MFU against ``--peak-tflops`` (default: the H100's dense bf16 peak).
+The nodes train the port's :class:`~tensorflowonspark_tpu_torch.models.
+llama.Llama` on a device mesh over all of them (one device each, CUDA
+unless ``--cpu``), as the JAX example does: ``ctx.mesh`` from ``--dp``,
+``--fsdp`` (``-1``: every rank left) and ``--tp``, the 'llama' table's
+placements (``llama_param_shardings``), ``shard_state``, the mesh
+``build_train_step`` with ZeRO, and ``shard_batch`` for each batch, with
+``adamw(moment_dtype=bf16)`` by default. It resumes from ``--model-dir``
+with ``restore_latest``, saves every ``--save-every`` steps with
+``CheckpointManager`` (sharded: every node writes its shards) and at the
+end with ``chief_final_save``, and prints the same per-node line as the
+JAX example: step ms, tokens/s and MFU against ``--peak-tflops``
+(default: the H100's dense bf16 peak).
 
 Same flags and defaults as the JAX example, except ``--peak-tflops``. Not
-ported yet, each raising ``NotImplementedError``: ``--fsdp``, ``--tp``,
-``--sp`` or ``--dp`` above 1 (the device mesh, ROADMAP A8), ``--remat
-dots`` (A3), ``--generate`` (KV-cache decode, A9), ``--lora-rank`` and
-``--quantize-decode`` (A10), ``--packed`` (A12). Without a mesh each node
-trains a replica of its own (the JAX package's single-controller mode).
+ported yet, each raising ``NotImplementedError``: ``--sp`` above 1
+(sequence parallel, ROADMAP A10), ``--generate`` (KV-cache decode, A9),
+``--lora-rank`` and ``--quantize-decode`` (A10), ``--packed`` (A12).
 
 Usage::
 
     python -m tensorflowonspark_tpu_torch.launcher --num-executors 1 \\
         tensorflowonspark_tpu_torch/examples/llama_fsdp.py \\
         [--model tiny|7b] [--steps 20] [--seq 512] [--batch-size 8] \\
+        [--dp N] [--fsdp N] [--tp N] [--remat full|dots|none] \\
         [--model-dir DIR] [--cpu]
 """
 
@@ -72,9 +76,7 @@ def _config(name: str, seq: int):
 
 def _refuse_unported(args) -> None:
     refused = [
-        (max(args.fsdp, args.tp, args.sp, args.dp) > 1,
-         "--fsdp/--tp/--sp/--dp above 1 (the device mesh)", "A8"),
-        (args.remat == "dots", "--remat dots", "A3"),
+        (args.sp > 1, "--sp above 1 (sequence parallel)", "A10"),
         (bool(args.generate), "--generate (KV-cache decode)", "A9"),
         (bool(args.lora_rank), "--lora-rank", "A10"),
         (args.quantize_decode, "--quantize-decode", "A10"),
@@ -99,7 +101,13 @@ def main_fun(args, ctx):
         restore_latest,
         saves_on_this_process,
     )
-    from tensorflowonspark_tpu_torch.models.llama import Llama, llama_loss_fn
+    from tensorflowonspark_tpu_torch.compute.mesh import shard_batch
+    from tensorflowonspark_tpu_torch.compute.train import shard_state
+    from tensorflowonspark_tpu_torch.models.llama import (
+        Llama,
+        llama_loss_fn,
+        llama_param_shardings,
+    )
 
     _refuse_unported(args)
     device = resolve_device(ctx.device)
@@ -109,8 +117,9 @@ def main_fun(args, ctx):
     if args.attention != "auto":
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     model = Llama(cfg, device=device, seed=0)
+    mesh = ctx.mesh({"data": args.dp, "fsdp": args.fsdp, "model": args.tp, "seq": args.sp})
     if ctx.executor_id == 0:
-        print(f"device: {device}")
+        print(f"device: {device}, mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
 
     rng = np.random.default_rng(ctx.executor_id)
     params = dict(model.named_parameters())
@@ -141,10 +150,14 @@ def main_fun(args, ctx):
     if args.clip > 0:
         # global-norm clip BEFORE the optimizer
         tx = optim.chain(optim.clip_by_global_norm(float(args.clip)), tx)
-    state = TrainState.create(params, tx)
+    psh = llama_param_shardings(params, mesh)
+    # every tensor of the state placed on the mesh, the params also in the
+    # model (its remat recomputes blocks from its own parameters)
+    state = shard_state(TrainState.create(params, tx), mesh, psh, module=model)
     token_loss = llama_loss_fn(model, logit_chunk=args.logit_chunk)
     step = build_train_step(
-        lambda p, b: token_loss(p, b["tokens"]), tx, device=device, accum_steps=args.accum
+        lambda p, b: token_loss(p, b["tokens"]), tx, mesh, param_shardings=psh,
+        accum_steps=args.accum,
     )
 
     ckpt = None
@@ -160,11 +173,11 @@ def main_fun(args, ctx):
             state = restored
 
     def batch():
-        return {
+        return shard_batch(mesh, {
             "tokens": rng.integers(
                 0, cfg.vocab_size, size=(args.batch_size, args.seq + 1)
             ).astype(np.int32)
-        }
+        })
 
     def sync():
         if device.type == "cuda":
@@ -179,7 +192,7 @@ def main_fun(args, ctx):
         state, loss = step(state, batch())
         if (i + 1) % 10 == 0:
             print(f"node{ctx.executor_id} step {i + 1} loss {float(loss):.4f}")
-        if ckpt is not None and args.save_every and saves_on_this_process(ctx.is_chief):
+        if ckpt is not None and args.save_every and saves_on_this_process(ctx.is_chief, state):
             # async save (host snapshot first) overlapped with the next
             # steps; the manager's save_interval policy decides which land
             ckpt.save(step_base + 1 + i, state)

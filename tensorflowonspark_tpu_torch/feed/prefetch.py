@@ -28,9 +28,13 @@ Port of :mod:`tensorflowonspark_tpu.feed.prefetch`, in CUDA idiom:
   event and marks each tensor with ``record_stream``, so the caching
   allocator does not hand its memory out again before the consumer's work
   on it is done;
-- ``from_feed`` and the constructor take ``device=`` (CUDA unless named) in
-  place of ``mesh``; a ``mesh`` raises (the device mesh is ROADMAP A8). On
-  the CPU the copy is a plain ``.to(device, copy=True)`` with no stream;
+- ``from_feed`` and the constructor take ``device=`` (CUDA unless named),
+  or ``mesh=`` (a mesh of ``compute.mesh.make_mesh``): then each host
+  batch is the global batch, every rank stages and copies only its own
+  rows (its block of the leading dim over ``(data, fsdp)``), and the
+  consumer gets DTensors sharded on dim 0, as ``compute.mesh.shard_batch``
+  makes them. On the CPU the copy is a plain ``.to(device, copy=True)``
+  with no stream;
 - ``stats()`` also reports the consumer's wait (``data_wait_s``,
   ``delivered``).
 """
@@ -92,11 +96,22 @@ def metrics() -> dict[str, Any]:
     return _metrics
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded batches are not ported yet: ROADMAP A8 (pass device=)"
-        )
+def _mesh_device(mesh, device):
+    """The device batches are copied to: the mesh's, when there is one."""
+    if mesh is None:
+        return device
+    if device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    return "cpu" if mesh.device_type == "cpu" else "cuda"
+
+
+def _rows(mesh):
+    """``host batch -> this rank's rows of it`` (views), or None."""
+    if mesh is None:
+        return None
+    from tensorflowonspark_tpu_torch.compute.mesh import local_batch
+
+    return lambda batch: batch if isinstance(batch, list) else local_batch(mesh, batch)
 
 
 class _DeviceBatch:
@@ -261,9 +276,10 @@ class DevicePrefetcher:
         transform: Callable[[Any], Any] | None = None,
         device=None,
     ):
-        _no_mesh(mesh)
         if transform is None:
-            transform = _Transfer(device)
+            copy, rows = _Transfer(_mesh_device(mesh, device)), _rows(mesh)
+            transform = copy if rows is None else (lambda b: copy(rows(b)))
+        self._mesh = mesh
         self._transform = transform
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
@@ -317,11 +333,12 @@ class DevicePrefetcher:
                     state, loss = step(state, batch)
 
         A ``transform`` of the caller's replaces the copy; it receives the
-        staged dict of host tensors.
+        staged dict of host tensors. With ``mesh`` only this rank's rows are
+        staged and copied, and the batches come out as DTensors.
         """
-        _no_mesh(mesh)
+        rows = _rows(mesh)
         if transform is None:
-            transform = _Transfer(device, copy_stream)
+            transform = _Transfer(_mesh_device(mesh, device), copy_stream)
         pin = isinstance(transform, _Transfer) and transform.device.type == "cuda"
         staging = _StagingPool(depth + 2, pin=pin)
 
@@ -343,11 +360,14 @@ class DevicePrefetcher:
                 staging.ensure(pf.stats()["depth"] + 2)
             if prepare is not None:
                 cols = prepare(cols)
+            if rows is not None:
+                cols = rows(cols)
             out = transform(staging.stage(cols))
             staging.commit(out.event if isinstance(out, _DeviceBatch) else None)
             return out
 
         pf = cls(host_batches(), depth=depth, transform=stage_and_transfer)
+        pf._mesh = mesh
         holder["pf"] = pf
         return pf
 
@@ -452,6 +472,10 @@ class DevicePrefetcher:
                     if isinstance(t, torch.Tensor):
                         t.record_stream(stream)
             batch = batch.tree
+        if self._mesh is not None and not isinstance(batch, list):
+            from tensorflowonspark_tpu_torch.compute.mesh import from_local_batch
+
+            batch = from_local_batch(self._mesh, batch)
         return batch
 
     def close(self) -> bool:

@@ -33,6 +33,52 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensorflowonspark_tpu_torch.ops.batch_norm import FusedBatchNorm, pop_batch_stats
+from tensorflowonspark_tpu_torch.parallel.context import gather_fsdp, is_dtensor, mesh_region
+
+
+def per_sample(fn, *batch_args, replicated=()):
+    """``fn(*batch_args, *replicated)`` for an operation that treats each
+    sample alone (a convolution, a pooling window, a pad, a per-row loss).
+
+    On plain tensors it is the call. On DTensors whose leading dim is the
+    batch (sharded over ``(data, fsdp)``) it runs on each rank's rows through
+    ``local_map``, with the ``replicated`` operands (weights) gathered
+    whole: DTensor's own convolution handler is written for a tensor-
+    parallel width split and refuses a batch split in some releases. The
+    gradient of a replicated operand leaves each rank as a partial sum over
+    the mesh dims that split the batch, which DTensor then reduces.
+    """
+    if not is_dtensor(batch_args[0]):
+        return fn(*batch_args, *replicated)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = batch_args[0].device_mesh
+    pl = list(batch_args[0].placements)
+    for a in batch_args:
+        if list(a.placements) != pl or any(p.is_shard() and p.dim != 0 for p in pl):
+            raise ValueError(f"per-sample operands must share a dim-0 (batch) split, got {pl}")
+    rep = [Replicate()] * mesh.ndim
+    partial = [Partial() if p.is_shard() else Replicate() for p in pl]
+    weights = [w if list(w.placements) == rep else w.redistribute(mesh, rep) for w in replicated]
+    n = len(batch_args)
+    return local_map(
+        fn, out_placements=pl, in_placements=(*[pl] * n, *[rep] * len(weights)),
+        in_grad_placements=(*[pl] * n, *[partial] * len(weights)), device_mesh=mesh,
+    )(*batch_args, *weights)
+
+
+def conv_param_shardings(params, mesh):
+    """Placements of a conv net's params (name -> tensor) from the layout
+    table's 'resnet' rules, which the JAX package's ResNet, VGG and
+    Inception share: each kernel's output channels over ``fsdp`` where they
+    divide, the rest replicated. Each spec is the one JAX gives the param's
+    flax leaf (HWIO, ``(in, out)``), permuted onto the port's OIHW and
+    ``(out, in)`` weights (``models.convert.jax_leaf``)."""
+    from tensorflowonspark_tpu_torch.compute import layout
+    from tensorflowonspark_tpu_torch.models.convert import jax_leaf
+
+    return layout.param_shardings(params, mesh, "resnet", view=jax_leaf)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -63,7 +109,7 @@ class FlaxNamed(nn.Module):
 def _pad_nhwc(x, pads_h, pads_w, value=0.0):
     if pads_h == (0, 0) and pads_w == (0, 0):
         return x
-    return F.pad(x, (0, 0, *pads_w, *pads_h), value=value)
+    return per_sample(lambda t: F.pad(t, (0, 0, *pads_w, *pads_h), value=value), x)
 
 
 class Conv(nn.Module):
@@ -84,8 +130,9 @@ class Conv(nn.Module):
             pad = (ph[0], pw[0])
         else:
             x = _pad_nhwc(x, ph, pw)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(self.dtype), stride=self.strides,
-                     padding=pad)
+        stride = self.strides
+        y = per_sample(lambda t, w: F.conv2d(t, w, stride=stride, padding=pad),
+                       x.permute(0, 3, 1, 2), replicated=(gather_fsdp(self.weight).to(self.dtype),))
         return y.permute(0, 2, 3, 1)
 
 
@@ -101,7 +148,7 @@ class Dense(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        return F.linear(x, self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        return F.linear(x, gather_fsdp(self.weight).to(self.dtype)) + self.bias.to(self.dtype)
 
 
 def max_pool(x, window: int, stride: int, padding: str = "VALID"):
@@ -109,7 +156,7 @@ def max_pool(x, window: int, stride: int, padding: str = "VALID"):
     if padding == "SAME":
         ph, pw = (same_pads(n, window, stride) for n in x.shape[1:3])
         x = _pad_nhwc(x, ph, pw, value=-math.inf)
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    y = per_sample(lambda t: F.max_pool2d(t, window, stride), x.permute(0, 3, 1, 2))
     return y.permute(0, 2, 3, 1)
 
 
@@ -123,7 +170,8 @@ def avg_pool(x, window: int, stride: int, padding: str = "VALID"):
         pad = (ph[0], pw[0])
     else:
         x, pad = _pad_nhwc(x, ph, pw), (0, 0)
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding=pad, count_include_pad=True)
+    y = per_sample(lambda t: F.avg_pool2d(t, window, stride, padding=pad, count_include_pad=True),
+                   x.permute(0, 3, 1, 2))
     return y.permute(0, 2, 3, 1)
 
 
@@ -166,16 +214,21 @@ def classifier_loss_fn(model: nn.Module, aux_weight: float = 0.0, **forward_kwar
     and ``batch_stats`` in place of its own tensors. A model that returns
     ``(logits, aux_logits)`` adds ``aux_weight ×`` the aux head's loss."""
 
+    def nll(logits, labels):
+        return F.cross_entropy(logits.float(), labels.long(), reduction="none")
+
     def loss(params, batch_stats, batch):
-        out = torch.func.functional_call(
-            model, {**params, **batch_stats}, (batch["image"],), {"train": True, **forward_kwargs}
-        )
-        new_stats = pop_batch_stats(model)
-        logits, aux = out if isinstance(out, tuple) else (out, None)
-        labels = batch["label"].long()
-        total = F.cross_entropy(logits.float(), labels)
-        if aux is not None:
-            total = total + aux_weight * F.cross_entropy(aux.float(), labels)
+        with mesh_region(batch["image"]):
+            out = torch.func.functional_call(
+                model, {**params, **batch_stats}, (batch["image"],),
+                {"train": True, **forward_kwargs},
+            )
+            new_stats = pop_batch_stats(model)
+            logits, aux = out if isinstance(out, tuple) else (out, None)
+            labels = batch["label"]
+            total = per_sample(nll, logits, labels).mean()
+            if aux is not None:
+                total = total + aux_weight * per_sample(nll, aux, labels).mean()
         return total, new_stats
 
     return loss

@@ -86,8 +86,19 @@ def _port_name(path: tuple[str, ...]) -> tuple[str, bool]:
     raise KeyError(f"no port parameter for flax leaf {'/'.join(path)}")
 
 
-def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """flax Llama ``params`` (nested dicts of arrays) -> port ``state_dict``."""
+def params_from_jax(tree, mesh=None, table: str | None = None) -> dict[str, torch.Tensor]:
+    """flax ``params`` (nested dicts of arrays: a mesh-sharded JAX tree
+    comes here through ``jax.device_get``) -> port ``state_dict``. With
+    ``mesh`` and a layout ``table`` ('llama', 'resnet') each tensor comes
+    back as a DTensor placed by the table's spec for its flax leaf
+    (:func:`jax_leaf`); every rank passes the same tree."""
+    if mesh is not None:
+        from tensorflowonspark_tpu_torch.compute import layout
+        from tensorflowonspark_tpu_torch.compute.train import place
+
+        plain = params_from_jax(tree)
+        shs = layout.param_shardings(plain, mesh, table, view=jax_leaf)
+        return {n: place(t, shs[n]) for n, t in plain.items()}
     out = {}
     for path, leaf in _flatten(tree):
         if not hasattr(leaf, "__array__"):
@@ -157,34 +168,63 @@ def _conv_leaf(parts: list[str]) -> tuple[str, bool] | None:
     return None
 
 
+def _jax_path(name: str) -> tuple[list[str], bool]:
+    """(flax path parts, transposed) for one port parameter name."""
+    parts = name.split(".")
+    conv = _conv_leaf(parts)
+    if conv is not None:
+        leaf, kernel = conv
+        return parts[:-1] + [leaf], kernel
+    if name in ("embed", "lm_head"):
+        return [name], name == "lm_head"
+    if name == "final_norm.scale":
+        return ["final_norm", "scale"], False
+    if parts[0] == "layers" and len(parts) >= 4:
+        layer = f"layer{parts[1]}"
+        if parts[2] in ("attn_norm", "mlp_norm") and parts[3:] == ["scale"]:
+            return [layer, parts[2], "scale"], False
+        if len(parts) == 5 and parts[3] in _DENSE.get(parts[2], ()):
+            leaf = {"weight": "kernel", "bias": "bias"}.get(parts[4])
+            if leaf is not None:
+                return [layer, parts[2], parts[3], leaf], leaf == "kernel"
+    raise KeyError(f"no flax leaf for port parameter {name}")
+
+
+def jax_leaf(name: str, shape: tuple) -> tuple[str, tuple, tuple]:
+    """``(path, shape, perm)`` of the flax leaf of one port parameter: its
+    '/'-joined path, its shape, and ``perm`` with port dim ``i`` = flax dim
+    ``perm[i]`` (the transpose :func:`params_from_jax` undoes). The layout
+    tables are keyed on these (``compute.layout.param_shardings``)."""
+    parts, transposed = _jax_path(name)
+    ndim = len(shape)
+    if not transposed:
+        perm = tuple(range(ndim))
+    elif ndim == 2:
+        perm = (1, 0)  # (out, in) <- (in, out)
+    elif ndim == 4:
+        perm = (3, 2, 0, 1)  # OIHW <- HWIO
+    else:
+        raise ValueError(f"{name}: a transposed leaf of rank {ndim}")
+    jshape = [0] * ndim
+    for i, p in enumerate(perm):
+        jshape[p] = shape[i]
+    return "/".join(parts), tuple(jshape), perm
+
+
+def _host(t) -> np.ndarray:
+    """A parameter (a tensor, or a DTensor gathered whole) as fp32 numpy."""
+    full = getattr(t, "full_tensor", None)
+    if full is not None:
+        t = full()
+    return t.detach().float().cpu().numpy()
+
+
 def params_to_jax(model) -> dict:
-    """Port model (or a dict of its parameters) -> flax-shaped nested dict of numpy."""
+    """Port model (or a dict of its parameters, plain or DTensors) ->
+    flax-shaped nested dict of numpy."""
     tree: dict = {}
     for name, t in _tensors(model, buffers=False).items():
-        arr = t.detach().float().cpu().numpy()
-        parts = name.split(".")
-        conv = _conv_leaf(parts)
-        if conv is not None:
-            leaf, kernel = conv
-            _nest(tree, parts[:-1] + [leaf], _to_flax(arr) if kernel else arr)
-            continue
-        if name in ("embed", "lm_head"):
-            tree[name] = arr.T.copy() if name == "lm_head" else arr
-            continue
-        if name == "final_norm.scale":
-            tree.setdefault("final_norm", {})["scale"] = arr
-            continue
-        if parts[0] != "layers":
-            raise KeyError(f"no flax leaf for port parameter {name}")
-        layer = tree.setdefault(f"layer{parts[1]}", {})
-        if parts[2] in ("attn_norm", "mlp_norm") and parts[3:] == ["scale"]:
-            layer.setdefault(parts[2], {})["scale"] = arr
-        elif len(parts) == 5 and parts[3] in _DENSE.get(parts[2], ()):
-            leaf = {"weight": "kernel", "bias": "bias"}.get(parts[4])
-            if leaf is None:
-                raise KeyError(f"no flax leaf for port parameter {name}")
-            dense = layer.setdefault(parts[2], {}).setdefault(parts[3], {})
-            dense[leaf] = arr.T.copy() if leaf == "kernel" else arr
-        else:
-            raise KeyError(f"no flax leaf for port parameter {name}")
+        parts, transposed = _jax_path(name)
+        arr = _host(t)
+        _nest(tree, parts, _to_flax(arr) if transposed else arr)
     return tree

@@ -20,6 +20,7 @@ import torch
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.models.conv import (
+    conv_param_shardings,
     Dense,
     FlaxNamed,
     _ConvBN,
@@ -260,3 +261,7 @@ def loss_fn(model: InceptionV3, generator: torch.Generator | None = None):
     draws from ``generator``."""
     kwargs = {"generator": generator} if generator is not None else {}
     return classifier_loss_fn(model, aux_weight=model.cfg.aux_weight, **kwargs)
+
+
+# the 'resnet' layout table's placements (``models.conv.conv_param_shardings``)
+inception_param_shardings = conv_param_shardings

@@ -10,9 +10,22 @@ CUDA flash kernels on a GPU.
 Parameter names follow the flax tree (``embed``, ``layers.{i}.attn.q_proj``
 for ``layer{i}/attn/q_proj`` …); :mod:`models.convert` maps the two.
 
+On a device mesh the params are DTensors placed by the layout table's
+'llama' rules (:func:`llama_param_shardings`) and the tokens a DTensor
+sharded over ``(data, fsdp)``: each dense layer gathers its weight's
+``fsdp`` shards where it uses it, attention runs the flash kernels on each
+rank's shard (``ops.attention.mesh_flash_attention``), and DTensor carries
+the rest.
+
+``remat_policy='dots'`` recomputes a block in backward but keeps the
+outputs of its plain matrix products (``aten.mm``/``aten.addmm``: the
+projections), as JAX's ``dots_with_no_batch_dims_saveable`` keeps the dot
+products without batch dims; attention's batched products are recomputed,
+and with them the flash forward.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): KV-cache decode, MoE experts, ``remat_policy='dots'``, and int8 or
-LoRA kernels (``models.convert.params_from_jax`` rejects them).
+item): KV-cache decode, MoE experts, and int8 or LoRA kernels
+(``models.convert.params_from_jax`` rejects them).
 """
 
 from __future__ import annotations
@@ -23,10 +36,15 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.ops.attention import dot_product_attention
+from tensorflowonspark_tpu_torch.parallel.context import gather_fsdp, mesh_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +74,8 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "auto"
     remat: bool = True
-    # 'full' (or 'none'): recompute the whole block in backward; 'dots'
-    # is not ported yet
+    # 'full' (or 'none'): recompute the whole block in backward; 'dots':
+    # keep the outputs of the plain matrix products, recompute the rest
     remat_policy: str = "full"
     # MoE experts are not ported yet (ROADMAP A10): only 0 is accepted
     num_experts: int = 0
@@ -192,7 +210,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
 
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = F.linear(x.to(self.dtype), gather_fsdp(self.weight).to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -249,6 +267,36 @@ class Block(nn.Module):
         return h + self.mlp(self.mlp_norm(h))
 
 
+# the plain matrix products, whose outputs remat_policy='dots' keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_saved():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def llama_param_shardings(params, mesh):
+    """Placements of a Llama's params (name -> tensor) from the layout
+    table's 'llama' rules: Megatron on ``(fsdp, model)``, norms
+    replicated; with ``model=1`` pure FSDP, with ``fsdp=1`` pure TP. Each
+    spec is the one JAX gives the param's flax leaf, permuted onto the
+    port's ``(out, in)`` weights (``models.convert.jax_leaf``). The table
+    leaves divisibility to the caller, as the JAX package's does: a dim
+    that does not divide its axes raises here."""
+    from tensorflowonspark_tpu_torch.compute import layout
+    from tensorflowonspark_tpu_torch.models.convert import jax_leaf
+
+    shs = layout.param_shardings(params, mesh, "llama", view=jax_leaf)
+    sizes = layout.axis_sizes(mesh)
+    for name, sh in shs.items():
+        layout.check_divisible(name, tuple(params[name].shape), sh.spec, sizes)
+    return shs
+
+
 def packed_positions(segment_ids):
     """RoPE positions that restart at each document boundary."""
     idx = torch.arange(segment_ids.shape[1], device=segment_ids.device).expand_as(segment_ids)
@@ -275,9 +323,7 @@ class Llama(nn.Module):
         super().__init__()
         if cfg.num_experts > 0:
             raise NotImplementedError("MoE experts (num_experts > 0) are not ported yet: ROADMAP A10")
-        if cfg.remat and cfg.remat_policy == "dots":
-            raise NotImplementedError("remat_policy='dots' is not ported yet: ROADMAP A3")
-        if cfg.remat and cfg.remat_policy not in ("full", "none"):
+        if cfg.remat and cfg.remat_policy not in ("full", "dots", "none"):
             raise ValueError(
                 f"unknown remat_policy {cfg.remat_policy!r}; expected 'full', 'dots', or 'none'"
             )
@@ -304,22 +350,29 @@ class Llama(nn.Module):
         a loss can project the vocabulary in chunks."""
         if decode:
             raise NotImplementedError("KV-cache decode is not ported yet: ROADMAP A9")
+        with mesh_region(tokens):
+            return self._forward(tokens, positions, segment_ids, return_hidden)
+
+    def _forward(self, tokens, positions, segment_ids, return_hidden):
         cfg = self.cfg
         if positions is None:
             if segment_ids is None:
                 positions = torch.arange(tokens.shape[1], device=tokens.device).expand_as(tokens)
             else:
                 positions = packed_positions(segment_ids)
-        x = self.embed[tokens].to(cfg.dtype)
+        x = F.embedding(tokens, gather_fsdp(self.embed)).to(cfg.dtype)
+        context_fn = _dots_saved if cfg.remat_policy == "dots" else None
         for block in self.layers:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, segment_ids, use_reentrant=False)
+                kw = {} if context_fn is None else {"context_fn": context_fn}
+                x = checkpoint(block, x, positions, segment_ids, use_reentrant=False, **kw)
             else:
                 x = block(x, positions, segment_ids)
         x = self.final_norm(x)
+        head = gather_fsdp(self.lm_head)
         if return_hidden:
-            return x, self.lm_head
-        return F.linear(x, self.lm_head.to(cfg.dtype)).float()
+            return x, head
+        return F.linear(x, head.to(cfg.dtype)).float()
 
 
 def packed_loss_mask(segment_ids):

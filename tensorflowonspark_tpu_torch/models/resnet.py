@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.models.conv import (
+    conv_param_shardings,
     Dense,
     FlaxNamed,
     _ConvBN,
@@ -138,3 +139,7 @@ def loss_fn(model: ResNet):
     """``loss(params, batch_stats, batch) -> (loss, new_batch_stats)`` for
     batches ``{'image', 'label'}`` (``models/resnet.py:loss_fn``)."""
     return classifier_loss_fn(model)
+
+
+# the 'resnet' layout table's placements (``models.conv.conv_param_shardings``)
+resnet_param_shardings = conv_param_shardings

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.models.conv import (
+    conv_param_shardings,
     Conv,
     Dense,
     FlaxNamed,
@@ -99,3 +100,7 @@ class VGG(FlaxNamed):
 def loss_fn(model: VGG):
     """The shared BN-classifier loss (same contract as ResNet's)."""
     return classifier_loss_fn(model)
+
+
+# the 'resnet' layout table's placements (``models.conv.conv_param_shardings``)
+vgg_param_shardings = conv_param_shardings

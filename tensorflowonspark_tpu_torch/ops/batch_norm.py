@@ -28,6 +28,14 @@ reach the returned mean and var are ignored, as in the JAX package.
 backward, so a forward and a backward never pair different routes. JAX's
 ``'pallas'`` is accepted as a name for ``'kernel'``.
 
+On a device mesh (DTensor activations, batch over ``(data, fsdp)``) the
+``kernel`` route takes ``bn_kernels.mesh_pair_stats`` and
+``mesh_cross_stats``: the kernels on each rank's rows, then an
+``all_reduce``. The JAX package routes the statistics through its mesh
+only for an explicit ``impl='pallas'``, because its ``auto`` is XLA; the
+port's ``auto`` takes the kernels on CUDA, so its mesh route follows its
+own ``auto``. ``xla`` on a mesh is DTensor's own reductions.
+
 The port calls no library BatchNorm.
 """
 
@@ -37,6 +45,7 @@ import torch
 from torch import nn
 
 from tensorflowonspark_tpu_torch.ops import bn_kernels
+from tensorflowonspark_tpu_torch.parallel.context import is_dtensor
 
 IMPLS = ("xla", "kernel", "auto")
 
@@ -69,7 +78,7 @@ def batch_norm_stats(x, impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]
     ``var = max(E[x²] − mean², 0)``."""
     n = _reduce_extent(x)
     if resolve_impl(impl, x) == "kernel":
-        s, s2 = bn_kernels.pair_stats(x)
+        s, s2 = (bn_kernels.mesh_pair_stats if is_dtensor(x) else bn_kernels.pair_stats)(x)
     else:
         xf = x.float()
         dims = _lead_dims(x)
@@ -105,7 +114,8 @@ class BNTrain(torch.autograd.Function):
         x, gamma, mean, invstd = ctx.saved_tensors
         n = _reduce_extent(x)
         if ctx.impl == "kernel":
-            sum_dy, sum_dy_x = bn_kernels.cross_stats(dy, x)
+            cross = bn_kernels.mesh_cross_stats if is_dtensor(x) else bn_kernels.cross_stats
+            sum_dy, sum_dy_x = cross(dy, x)
             sum_dy_xhat = invstd * (sum_dy_x - mean * sum_dy)
             xhat = ((x.float() - mean) * invstd).to(x.dtype)
         else:

@@ -17,8 +17,16 @@ fp32 only and a contiguous tensor only (a channels-last activation viewed
 NHWC), and raises on anything else rather than copying. ``LAUNCHES``
 counts the kernel launches.
 
-The multi-device forms (``stats_mesh``, ``mesh_pair_stats``,
-``mesh_cross_stats``) wait for ROADMAP A8.
+On a device mesh, :func:`mesh_pair_stats` and :func:`mesh_cross_stats` take
+DTensors sharded on the batch over ``(data, fsdp)``: each rank runs the
+wrapper (kernel or plain version) on its own rows, and one ``all_reduce``
+per batch axis sums the two partial vectors. The sums are exact identities
+of that split, so they equal the single-device kernel's up to the order of
+the fp32 additions: the kernels are bit-repeatable on one rank, but not
+across a change of world size. A batch that does not divide over the ranks
+is split as DTensor splits it (the last ranks hold fewer rows); each rank
+sums the rows it holds. A DTensor that reaches :func:`pair_stats` or
+:func:`cross_stats` raises.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import ctypes
 import functools
 
 import torch
+
+from tensorflowonspark_tpu_torch.parallel.context import MESH_ROUTES, is_dtensor
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = {"pair": 0, "cross": 0}
@@ -69,8 +79,14 @@ def _kernels() -> dict:
 
 def as_2d(x: torch.Tensor) -> torch.Tensor:
     """The ``(rows, C)`` view of ``x`` (channels last), without a copy:
-    raises for a dtype the kernels do not take or a tensor that is not
-    contiguous."""
+    raises for a DTensor (its route is :func:`mesh_pair_stats` /
+    :func:`mesh_cross_stats`), a dtype the kernels do not take or a tensor
+    that is not contiguous."""
+    if is_dtensor(x):
+        raise TypeError(
+            "a DTensor reached the batch-norm statistics outside their mesh route "
+            "(mesh_pair_stats / mesh_cross_stats)"
+        )
     if x.dtype not in DTYPES:
         raise TypeError(f"batch-norm statistics take float32/bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -181,3 +197,47 @@ def cross_stats(dy: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.
     _launch("tfos_bn_cross_stats", (dy2, x2), (s, q), rows, c)
     LAUNCHES["cross"] += 1
     return s, q
+
+
+# --------------------------------------------------------------------------
+# mesh routes: the wrappers on each rank's rows, then an all_reduce
+# --------------------------------------------------------------------------
+
+
+def _mesh_stats(stats_fn, kind, arrays):
+    """``stats_fn`` on each rank's rows of DTensors sharded on dim 0 over
+    the batch axes (redistributed there if they are not), the two partial
+    sums all-reduced over each batch axis of the mesh: replicated fp32
+    ``(C,)`` DTensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from tensorflowonspark_tpu_torch.compute import layout
+
+    mesh = arrays[0].device_mesh
+    want = layout.placements(mesh, layout.batch_spec(arrays[0].ndim))
+    local = [(a if tuple(a.placements) == want else a.redistribute(mesh, want)).to_local()
+             for a in arrays]
+    c = local[0].shape[-1]
+    if local[0].numel():
+        s, q = stats_fn(*local)
+        both = torch.stack([s, q])
+    else:  # a rank whose split of an uneven batch is empty
+        both = torch.zeros(2, c, dtype=torch.float32, device=local[0].device)
+    names = mesh.mesh_dim_names
+    for axis in layout.BATCH_AXES:
+        if axis in names and mesh.size(names.index(axis)) > 1:
+            dist.all_reduce(both, group=mesh.get_group(axis))
+    MESH_ROUTES[f"bn_{kind}"] += 1
+    rep = [Replicate()] * mesh.ndim
+    return tuple(DTensor.from_local(t, mesh, rep, run_check=False) for t in both.unbind(0))
+
+
+def mesh_pair_stats(x) -> tuple:
+    """:func:`pair_stats` of a batch-sharded DTensor, over all its rows."""
+    return _mesh_stats(pair_stats, "pair", (x,))
+
+
+def mesh_cross_stats(dy, x) -> tuple:
+    """:func:`cross_stats` of batch-sharded DTensors, over all their rows."""
+    return _mesh_stats(cross_stats, "cross", (dy, x))

@@ -36,6 +36,8 @@ import functools
 
 import torch
 
+from tensorflowonspark_tpu_torch.parallel.context import is_dtensor
+
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,6 +137,11 @@ def _geometry(q, k):
 
 
 def _on_cpu(*tensors) -> bool:
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            "a DTensor reached the flash kernels outside their mesh route "
+            "(ops.attention.mesh_flash_attention)"
+        )
     devices = {t.device.type for t in tensors}
     if devices == {"cpu"}:
         return True
@@ -336,7 +343,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal=False, scale=None, window=None, segment_ids=None):
     """Flash attention over (B, S, H, D) with GQA, end-aligned causal mask,
-    optional sliding ``window`` (needs ``causal``) and ``segment_ids``."""
+    optional sliding ``window`` (needs ``causal``) and ``segment_ids``.
+    Plain tensors only: DTensors go through
+    ``ops.attention.mesh_flash_attention``."""
+    _on_cpu(q, k, v)
     return FlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal, scale, window, segment_ids
     )

@@ -254,3 +254,25 @@ def test_llama_example_resumes_across_legs(tmp_path, capfd):
     assert "resuming from step 3" in second
     # restored step 3, warm-up to 4, saves 5 and 6; max_to_keep 3
     assert CheckpointManager(str(model_dir)).all_steps() == [3, 5, 6]
+
+
+def test_llama_example_trains_on_the_mesh_axes(capfd):
+    """The example's mesh flags on four CPU nodes: data parallel (ZeRO over
+    'data') times tensor parallel, with the 'dots' remat (the default
+    --fsdp -1 is the resume test's above)."""
+    flags = ["--dp", "2", "--tp", "2", "--fsdp", "1", "--remat", "dots"]
+    args = llama_fsdp.parse_args(["--cpu", "--steps", "2", "--seq", "16", "--batch-size", "2",
+                                  *flags])
+    cluster = tfcluster.run(llama_fsdp.main_fun, args, num_executors=4,
+                            input_mode=InputMode.TENSORFLOW, distributed=True,
+                            reservation_timeout=120, env=NODE_ENV)
+    cluster.shutdown(timeout=300)
+    out = capfd.readouterr().out
+    assert "'data': 2, 'fsdp': 1" in out and "'model': 2" in out
+    assert out.count("MFU") == 4
+
+
+def test_llama_example_still_refuses_sequence_parallel():
+    args = llama_fsdp.parse_args(["--cpu", "--sp", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        llama_fsdp._refuse_unported(args)

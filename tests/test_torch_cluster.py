@@ -28,6 +28,7 @@ import pickle
 import re
 import secrets
 import threading
+import types
 from pathlib import Path
 
 import numpy as np
@@ -54,7 +55,7 @@ NODE_ENV = {**cpu_only_env(), "OMP_NUM_THREADS": "1"}
 VERBATIM = [
     "utils/util.py", "utils/failpoints.py", "utils/retry.py", "utils/batching.py",
     "utils/metrics.py", "obs/registry.py", "obs/flightrec.py", "obs/cluster.py",
-    "cluster/wire.py", "cluster/marker.py", "feed/columnar.py", "cluster/manager.py",
+    "cluster/wire.py", "cluster/marker.py", "feed/columnar.py",
     "cluster/reservation.py", "cluster/reservation_client.py", "cluster/launchers.py",
     "launcher.py", "cluster/node_main.py",
 ]
@@ -69,6 +70,9 @@ PATCHED = {
     "cluster/tfcluster.py": [(16, 15), (37, 36), (335, 344), (864, 864), (934, 934), (986, 986),
                              (1066, 1066), (1193, 1196), (1359, 1358), (1797, 1796)],
     "feed/datafeed.py": [(13, 12), (585, 584), (586, 586), (589, 589), (596, 596), (614, 618)],
+    # a stopped server's accepter parked instead of spinning on its closed
+    # listener (test_stopped_manager_does_not_spin)
+    "cluster/manager.py": [(97, 96), (98, 98), (101, 100)],
 }
 
 
@@ -241,8 +245,10 @@ def test_synchronized_batch_stream_stops_gloo_nodes_together(tmp_path):
 def test_unported_branches_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         tfcluster.run(cluster_fns.sum_fn, {}, num_executors=1, elastic=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        DevicePrefetcher([], mesh=object())
+    # the device mesh is ported (tests/test_torch_mesh.py): a mesh and a
+    # device together are refused
+    with pytest.raises(ValueError, match="not both"):
+        DevicePrefetcher([], mesh=types.SimpleNamespace(device_type="cpu"), device="cpu")
 
 
 # -- manager and DataFeed (tests/test_manager_datafeed.py, on the port) -------
@@ -253,6 +259,41 @@ def mgr():
     h = manager.start(secrets.token_bytes(16), mode="local")
     yield h
     h.stop()
+
+
+def test_stopped_manager_does_not_spin():
+    """A connection attempt after stop() used to wake the accepter thread
+    into multiprocessing's retry loop on a closed listener, 100 % CPU for
+    the life of the process (the GIL it took slowed every later test of
+    the process by orders of magnitude). The accepter's own CPU time is
+    read from /proc, so other threads of the process do not count."""
+    import socket
+    import time
+
+    before = set(threading.enumerate())
+    h = manager.start(secrets.token_bytes(16), mode="local")
+    accepters = [t for t in threading.enumerate()
+                 if t not in before and "accepter" in t.name]
+    assert len(accepters) == 1
+    deadline = time.monotonic() + 5
+    while accepters[0].native_id is None and time.monotonic() < deadline:
+        time.sleep(0.01)  # the thread has not run yet
+    stat = f"/proc/self/task/{accepters[0].native_id}/stat"
+
+    def cpu_ticks():
+        fields = open(stat).read().rsplit(")", 1)[1].split()
+        return int(fields[11]) + int(fields[12])  # utime + stime
+
+    h.stop()
+    time.sleep(0.2)
+    try:  # refused, or taken by the socket the blocked accept() still holds
+        socket.create_connection(tuple(h.address), timeout=1).close()
+    except OSError:
+        pass
+    time.sleep(0.3)
+    t0 = cpu_ticks()
+    time.sleep(1.0)
+    assert cpu_ticks() - t0 < 10  # clock ticks (100 a second): the thread sleeps
 
 
 def test_kv_and_queue_local_and_remote(mgr):

@@ -157,6 +157,50 @@ def test_remat_matches_no_remat():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
+def test_remat_dots_matches_no_remat_and_recomputes_attention(monkeypatch):
+    """``remat_policy='dots'`` keeps the projections' outputs and recomputes
+    the rest of each block, the flash forward among it: the loss and grads
+    are those of ``remat=False`` (1e-6 / 1e-5 relative, fp32), and the flash
+    Function's forward runs twice a layer (the forward, then the recompute)
+    where ``remat=False`` runs it once."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as tfa
+
+    calls = {"n": 0}
+    real = tfa.flash_forward
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tfa, "flash_forward", counted)
+    _, tcfg = _configs()  # the port's attention runs through the flash wrapper
+    outs = []
+    for remat in (False, True):
+        calls["n"] = 0
+        cfg = dataclasses.replace(tcfg, remat=remat, remat_policy="dots")
+        model = tllama.Llama(cfg, device="cpu", seed=5)
+        loss = tllama.llama_loss_fn(model)(_port_params(model), torch.from_numpy(_tokens()))
+        loss.backward()
+        outs.append((loss.item(), [p.grad.clone() for p in model.parameters()], calls["n"]))
+    assert outs[0][0] == pytest.approx(outs[1][0], rel=1e-6)
+    for a, b in zip(outs[0][1], outs[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    assert (outs[0][2], outs[1][2]) == (tcfg.num_layers, 2 * tcfg.num_layers)
+
+
+def test_remat_dots_saves_only_plain_matmul_outputs():
+    """The 'dots' policy keeps aten.mm/addmm outputs (JAX's
+    dots_with_no_batch_dims_saveable) and recomputes everything else,
+    batched products included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    policy = tllama._dots_policy
+    assert policy(None, torch.ops.aten.mm.default) == CheckpointPolicy.MUST_SAVE
+    assert policy(None, torch.ops.aten.addmm.default) == CheckpointPolicy.MUST_SAVE
+    for op in (torch.ops.aten.bmm.default, torch.ops.aten.mul.Tensor, torch.ops.aten.exp.default):
+        assert policy(None, op) == CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def test_packed_positions_and_mask_match_jax():
     seg = _packed_segments(seed=7)
     jmask, jcanon = jllama.packed_loss_mask(jnp.asarray(seg))
@@ -212,8 +256,8 @@ def test_unported_features_raise():
     _, tcfg = _configs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllama.Llama(dataclasses.replace(tcfg, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.Llama(dataclasses.replace(tcfg, remat=True, remat_policy="dots"), device="cpu")
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        tllama.Llama(dataclasses.replace(tcfg, remat=True, remat_policy="offload"), device="cpu")
     model = tllama.Llama(tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(torch.zeros(1, 4, dtype=torch.long), decode=True)

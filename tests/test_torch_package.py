@@ -60,6 +60,9 @@ def test_import_leaves_jax_out():
         "import tensorflowonspark_tpu_torch.models.inception, tensorflowonspark_tpu_torch.models.conv\n"
         "import tensorflowonspark_tpu_torch.ops.batch_norm, tensorflowonspark_tpu_torch.ops.bn_kernels\n"
         "import tensorflowonspark_tpu_torch.compute.optim\n"
+        "import tensorflowonspark_tpu_torch.compute.mesh, tensorflowonspark_tpu_torch.compute.layout\n"
+        "import tensorflowonspark_tpu_torch.parallel, tensorflowonspark_tpu_torch.compute.checkpoint\n"
+        "import tensorflowonspark_tpu_torch.feed.prefetch, tensorflowonspark_tpu_torch.cluster.context\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -297,10 +300,31 @@ def test_chip_smoke_cluster_phase_rehearses_on_cpu(capsys):
     assert lines[-2]["backend"] == "gloo" and lines[-2]["checkpoint"]["n_unequal"] == 0
 
 
+def test_chip_smoke_mesh_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase mesh runs on the CPU at a tiny size (a gloo group
+    of one, the wrappers' plain versions): the mesh routes are taken, and
+    the node's sharded checkpoint restores bit for bit."""
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    smoke.phase_mesh(fa, bn_kernels, rehearse={"device": "cpu", "sizes": {
+        "batch": 2, "seq": 32, "vocab": 256, "steps": 2, "conv_batch": 4, "conv_steps": 2,
+        "lr": 1e-2, "depth": 2, "update_calls": 2}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    checks = {x["case"]: x for x in lines if "case" in x}
+    assert sorted(checks) == ["llama_mesh_step", "mesh_node", "resnet_mesh_step"]
+    assert all(x["ok"] for x in checks.values())
+    assert checks["llama_mesh_step"]["err"]["attention_routes"] == 8
+    assert checks["mesh_node"]["err"]["restored_unequal"] == 0
+    assert not torch.distributed.is_initialized()
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
-          "prefetch_no_fence", "ckpt_no_snapshot"]
+          "prefetch_no_fence", "ckpt_no_snapshot", "mesh_attention_plain",
+          "mesh_restore_skips_opt_state", "mesh_bn_plain"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
@@ -312,7 +336,7 @@ def test_chip_faults_plants_each_fault_in_the_kernel_source(fault):
     chip_smoke = _import_root_module("chip_smoke")
     assert sorted(chip_faults.FAULTS) == sorted(FAULTS)
     path = chip_faults.FAULTS[fault][0]
-    assert hasattr(chip_smoke, chip_faults.CHECKS[path].split("(")[0])
+    assert hasattr(chip_smoke, chip_faults.check_of(fault).split("(")[0])
     source = (ROOT / path).read_text()
     faulty = chip_faults.planted(source, fault)
     assert faulty != source
