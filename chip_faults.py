@@ -22,11 +22,20 @@ state saved before the step that followed the async save), and
 ``chip_smoke.phase_mesh`` at 4 layers and ResNet-50 at batch 32 for the
 mesh routes of ``ops/attention.py``, ``ops/bn_kernels.py`` and the sharded
 restore of ``compute/checkpoint.py`` (the kernels' launches and the mesh
-routes' counts per step, and a sharded checkpoint restored bit for bit).
+routes' counts per step, and a sharded checkpoint restored bit for bit),
+and ``chip_smoke.phase_elastic`` at 2 layers, batch 2, sequence 256 for
+``compute/elastic.py``, ``cluster/node.py``'s heartbeat and the elastic
+nodes' attention (a SIGKILLed node, a reconfigure in memory, a
+replacement hydrated from its peer, a checkpoint fallback with its rewind;
+the outcomes, the replacement's start step, every loss and the final
+state against an uninterrupted run bit for bit, the state's dtypes and
+bytes after each reconfigure, and the kernels' launches).
 Faults that show only across ranks (a dropped ``all_reduce``, a rank's
 rows lost from an uneven split) cannot show on one card; the CPU tests
 plant those at 2 ranks (``tests/test_torch_mesh.py``). The unchanged
-copy runs every check once. The children run at once. Each prints its check lines; this script prints one
+copy runs every check once. The children run at once, but those of the
+elastic check (the unchanged copy's and the elastic faults', two or three
+node processes each) run three at a time once the others have ended. Each prints its check lines; this script prints one
 JSON line per fault with the readings of the last, and exits non-zero
 unless the checks pass the unchanged sources and refuse every fault.
 """
@@ -47,12 +56,17 @@ PREFETCH = Path("tensorflowonspark_tpu_torch/feed/prefetch.py")
 CKPT = Path("tensorflowonspark_tpu_torch/compute/checkpoint.py")
 ATTENTION = Path("tensorflowonspark_tpu_torch/ops/attention.py")
 BN_ROUTE = Path("tensorflowonspark_tpu_torch/ops/bn_kernels.py")
+ELASTIC = Path("tensorflowonspark_tpu_torch/compute/elastic.py")
+NODE = Path("tensorflowonspark_tpu_torch/cluster/node.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
+ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
-          CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK}
+          CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
+          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK}
 # faults whose check is not their source's
-FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK}
+FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
+                "elastic_plain_attention": ELASTIC_CHECK}
 
 # name -> (source, statement as in the source, the faulty statement)
 FAULTS = {
@@ -160,6 +174,48 @@ FAULTS = {
         "s, q = stats_fn(*local)",
         's, q = (pair_stats_plain if kind == "pair" else cross_stats_plain)(*map(as_2d, local))',
     ),
+    # the reconfigure commits fresh (zero) optimizer state instead of the
+    # snapshot's
+    "reshard_drops_opt_state": (
+        ELASTIC,
+        "state = reshard_state(snapshot, shardings)",
+        "state = reshard_state(dataclasses.replace(snapshot, opt_state=_tree_map("
+        "torch.zeros_like, snapshot.opt_state)), shardings)",
+    ),
+    # the snapshot goes through numpy, which has no bf16: the bf16 moments
+    # come back as fp32
+    "snapshot_casts_bf16": (
+        ELASTIC,
+        'return _tree_map(lambda _x: next(it).to("cpu", copy=True), state)',
+        'return _tree_map(lambda _x: torch.from_numpy(next(it).cpu().float().numpy()) '
+        'if _x.dtype == torch.bfloat16 else next(it).to("cpu", copy=True), state)',
+    ),
+    # a peer's manager keeps serving its first (oldest) snapshot, so the
+    # joiner hydrates from it instead of the freshest
+    "hydrate_stale_step": (
+        ELASTIC,
+        "mgr.set(self._state_key, blob)",
+        "mgr.set(self._state_key, mgr.get(self._state_key) or blob)",
+    ),
+    # after a checkpoint fallback the loop is not told to rewind
+    "fallback_no_rewind": (
+        ELASTIC,
+        "self.resume_step = restored_step",
+        "self.resume_step = None",
+    ),
+    # the heartbeat swallows the membership epoch (the port's earlier stub)
+    "heartbeat_ignores_epoch": (
+        NODE,
+        'elastic.notify_membership(info["epoch"], info["roster"])',
+        'raise NotImplementedError("elastic membership is not ported yet")',
+    ),
+    # attention 'auto' takes the plain attention on CUDA too: the elastic
+    # nodes' llama launches no kernel
+    "elastic_plain_attention": (
+        ATTENTION,
+        'return "flash" if on_cuda and _flash_shapes_ok(q, k, segment_ids) else "xla"',
+        'return "xla"',
+    ),
 }
 
 
@@ -185,21 +241,55 @@ def planted(source: str, name: str) -> str:
     return source.replace(old, new)
 
 
-def start(name: str, workdir: Path) -> subprocess.Popen:
-    copy = workdir / name
+def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Popen:
+    """A child that runs ``checks`` on a copy with fault ``name`` planted
+    (every source unchanged for "none"), in ``workdir / label``."""
+    copy = workdir / label
     shutil.copytree(ROOT / "tensorflowonspark_tpu_torch", copy / "tensorflowonspark_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", copy)
     sources = list(CHECKS) if name == "none" else [FAULTS[name][0]]
     for source in sources:
         (copy / source).write_text(planted((ROOT / source).read_text(), name))
-    if name == "none":  # each check once
-        checks = dict.fromkeys([*CHECKS.values(), *FAULT_CHECKS.values()])
-    else:
-        checks = [check_of(name)]
     code = CHILD + "".join(f"chip_smoke.{check}\n" for check in checks)
-    return subprocess.Popen([sys.executable, "-c", code], cwd=copy, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    with open(copy / "output.log", "w") as log:  # a file: no pipe to fill while others run
+        return subprocess.Popen([sys.executable, "-c", code], cwd=copy, text=True,
+                                stdout=log, stderr=subprocess.STDOUT)
+
+
+def jobs() -> tuple[list, list]:
+    """(label, fault, checks) of the children: those that run at once, and
+    those of the elastic check (two or three node processes each), which
+    run ELASTIC_AT_ONCE at a time after the first have ended."""
+    every = list(dict.fromkeys([*CHECKS.values(), *FAULT_CHECKS.values()]))
+    first = [("none", "none", [c for c in every if c != ELASTIC_CHECK])]
+    later = [("none:elastic", "none", [ELASTIC_CHECK])]
+    for name in FAULTS:
+        (later if check_of(name) == ELASTIC_CHECK else first).append((name, name, [check_of(name)]))
+    return first, later
+
+
+ELASTIC_AT_ONCE = 3
+
+
+def run_all(workdir: Path) -> dict:
+    """Every child's (return code, output), by label."""
+    first, later = jobs()
+    done = {}
+
+    def finish(label, proc):
+        proc.wait(timeout=900)
+        done[label] = (proc.returncode, (workdir / label / "output.log").read_text())
+
+    procs = [(label, start(label, name, checks, workdir)) for label, name, checks in first]
+    for label, proc in procs:
+        finish(label, proc)
+    for i in range(0, len(later), ELASTIC_AT_ONCE):
+        procs = [(label, start(label, name, checks, workdir))
+                 for label, name, checks in later[i:i + ELASTIC_AT_ONCE]]
+        for label, proc in procs:
+            finish(label, proc)
+    return done
 
 
 def check_line(output: str) -> dict | None:
@@ -215,22 +305,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_faults: no CUDA device", file=sys.stderr)
         return 1
-    names = ["none", *FAULTS]
     good = True
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {n: start(n, Path(tmp)) for n in names}
-        for name, proc in procs.items():
-            out, _ = proc.communicate(timeout=900)
-            line = check_line(out)
-            if line is None:
-                print(out, file=sys.stderr)
-                good = False
-                continue
-            passed = bool(line["ok"]) and proc.returncode == 0
-            good &= passed if name == "none" else not passed
-            print(json.dumps({"fault": name, "passed_check": passed, "case": line["case"],
-                              "err": line["err"], "lse_err": line.get("lse_err"),
-                              "tol": line["tol"]}), flush=True)
+        results = run_all(Path(tmp))
+    for label, (rc, out) in results.items():
+        line = check_line(out)
+        unchanged = label.startswith("none")
+        passed = line is not None and bool(line["ok"]) and rc == 0
+        if line is None or (unchanged and not passed):
+            print(out[-20000:], file=sys.stderr)
+        if line is None:
+            good = False
+            continue
+        good &= passed if unchanged else not passed
+        print(json.dumps({"fault": label, "passed_check": passed, "case": line["case"],
+                          "err": line["err"], "lse_err": line.get("lse_err"),
+                          "tol": line["tol"]}), flush=True)
     print(json.dumps({"ok": good}))
     return 0 if good else 1
 

@@ -85,11 +85,34 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    ``DevicePrefetcher.from_feed(mesh=…)``, saves the mesh state sharded,
    restores it into a state from seed 1 and takes one more step from each
    (every restored tensor bit-equal, the two losses equal).
+9. elastic — membership changes mid-run: first the uninterrupted run
+   (phase train's configuration, 24 steps on Zipf batches that are a pure
+   function of the step index; its final state to a file), then
+   ``tfcluster.run(num_executors=2, elastic=True, input_mode=TENSORFLOW,
+   distributed=False)``: two single-controller llama_1b nodes share the
+   card, each an ``ElasticTrainer`` loop with its state on its own device.
+   Each node publishes its snapshot once at its first step, and the two
+   nodes of epochs 0 and 2 wait for each other once past that (and node
+   0's checkpoint), so that the rest share the card. Once both have taken 5 steps
+   node 1 is SIGKILLed; ``supervise()`` bumps the epoch and
+   node 0 reconfigures in memory (``resharded``). ``launch_replacement``
+   starts a node that hydrates from node 0's published snapshot
+   (``peer_hydrate``); its admission bumps the epoch again, and node 0,
+   with ``elastic.reshard_gather`` armed, restores its checkpoint of step
+   2 (``checkpoint_fallback``) and replays from there. Checks: the
+   outcomes and epochs, the joiner starts at the step of node 0's freshest
+   snapshot, every step's loss equals the uninterrupted run's, both
+   nodes' final params and optimizer state equal its final state bit for
+   bit, and 16 launches of each flash kernel per step in each node.
+   Reports each node's step ms with two nodes on the card, one, and two
+   again, kill-to-next-epoch seconds, the snapshot, publish, reconfigure
+   and hydrate seconds and bytes, and peak device memory.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
 sum over its 53 BatchNorm layers; ``mesh_launches`` counts phase mesh's
-timed steps), the ``nvidia-smi`` name and power
+timed steps, ``elastic_launches`` phase elastic's steps in both nodes),
+the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1443,6 +1466,477 @@ def phase_mesh_node(layers=16, rehearse=None):
                and r["backend"] == ("nccl" if cuda else "gloo") and r["world"] == 1)
 
 
+
+# phase elastic: two llama_1b nodes of one elastic cluster share the card.
+# Batch, sequence, steps, learning rate; node 1 is killed once both nodes
+# have taken kill_after steps; node 0 saves a checkpoint of step ckpt_step;
+# the first nodes wait at step hold[e - 1] (at most wait_s seconds) for
+# membership epoch e, node 0 at the second also for the replacement to have
+# hydrated, so each change lands mid-run and the last steps run on two
+# nodes; heartbeat interval and grace (s). The SIGKILL shows in the exit
+# code at once; the grace only has to outlast a beat held back while a
+# node pickles its snapshot on a busy host
+ELASTIC = dict(batch=8, seq=1024, steps=24, lr=1e-4, kill_after=5, ckpt_step=2, hold=(6, 12),
+               wait_s=180.0, heartbeat=0.5, grace=15.0, vocab=32000)
+
+
+def elastic_cfg(layers, tiny, seq):
+    from tensorflowonspark_tpu_torch.models.llama import LlamaConfig
+
+    if tiny:  # the CPU rehearsal: plain versions of the kernels, fp32
+        return LlamaConfig.tiny(max_seq_len=seq, remat=False, dtype=torch.float32)
+    return LlamaConfig.llama_1b(max_seq_len=seq, remat=False, attention_impl="auto",
+                                num_layers=layers)
+
+
+def elastic_batch(i: int, c: dict, vocab: int) -> dict:
+    """The batch of step ``i``, a pure function of the step index (the
+    replay contract of elastic training): Zipf token ids from seed 1000 + i."""
+    rng = np.random.default_rng(1000 + i)
+    toks = np.minimum(rng.zipf(1.2, size=(c["batch"], c["seq"] + 1)), vocab) - 1
+    return {"tokens": torch.from_numpy(toks.astype(np.int32))}
+
+
+def elastic_parts(cfg, c, device):
+    """Model from seed 0, optimizer, train step and fresh state: the same
+    in the oracle and in every node."""
+    from tensorflowonspark_tpu_torch.compute import TrainState, adamw, build_train_step
+    from tensorflowonspark_tpu_torch.models.llama import Llama, llama_loss_fn
+
+    model = Llama(cfg, device=device, seed=0)
+    tx = adamw(c["lr"], moment_dtype=torch.bfloat16)
+    loss_fn = llama_loss_fn(model)
+    step = build_train_step(lambda p, b: loss_fn(p, b["tokens"]), tx, device=device)
+    return model, step, TrainState.create(dict(model.named_parameters()), tx)
+
+
+RECOVERY_OUTCOMES = ("resharded", "checkpoint_fallback", "peer_hydrate", "fresh_init", "failed")
+
+
+def with_outcome(call):
+    """``(call(), outcome)``: the recovery outcome that ``call`` (a
+    reconfigure or a hydrate) counted in ``elastic_recoveries_total``."""
+    from tensorflowonspark_tpu_torch.obs.registry import default_registry
+
+    counter = default_registry().counter("elastic_recoveries_total")
+    before = {o: counter.value(outcome=o) for o in RECOVERY_OUTCOMES}
+    out = call()
+    return out, next(o for o in RECOVERY_OUTCOMES if counter.value(outcome=o) > before[o])
+
+
+def reshard_seconds() -> float:
+    """Seconds of every reconfigure so far (the ``elastic_reshard_seconds``
+    histogram's sum: the reconfigure up to its publish)."""
+    from tensorflowonspark_tpu_torch.obs.registry import default_registry
+
+    hist = default_registry().histogram("elastic_reshard_seconds").value()
+    return 0.0 if hist is None else hist["sum"]
+
+
+class LoggedKV:
+    """A node's manager KV as its ``ElasticTrainer`` sees it: each ``set``
+    of the elastic state key appends the blob's bytes, the seconds of the
+    set and the wall time after it to ``log``."""
+
+    def __init__(self, mgr, key, log):
+        self._mgr, self._key, self._log = mgr, key, log
+
+    def set(self, key, value):
+        t0 = time.perf_counter()
+        self._mgr.set(key, value)
+        if key == self._key:
+            self._log.append({"bytes": len(value), "set_s": time.perf_counter() - t0,
+                              "at": time.time()})
+
+    def __getattr__(self, name):
+        return getattr(self._mgr, name)
+
+
+def adopt(model, params) -> None:
+    """Point the model's parameters at ``params`` (a resharded state's), so
+    the tensors they held before are freed."""
+    with torch.no_grad():
+        for name, p in params.items():
+            model.get_parameter(name).data = p
+
+
+def elastic_oracle(cfg, c, device, path) -> list:
+    """The uninterrupted run: ``steps`` steps on the same batches from the
+    same weights; its final state goes to ``path`` (host tensors)."""
+    model, step, state = elastic_parts(cfg, c, device)
+    losses = []
+    for i in range(c["steps"]):
+        state, loss = step(state, elastic_batch(i, c, cfg.vocab_size))
+        losses.append(loss.item())
+    torch.save({k: v.detach().cpu() for k, v in state_tensors(state).items()}, path)
+    del model, step, state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def elastic_node(args, ctx):
+    """map_fun of phase elastic (module level, so spawn pickles it by
+    name): llama_1b trained by an ``ElasticTrainer`` loop on this node's
+    own device, a single-controller node (the trainer's default placement:
+    plain tensors there).
+    A replacement (``args["rejoin"]``) hydrates first. Node 0 saves a
+    checkpoint and arms ``elastic.reshard_gather`` for its reconfigure to
+    epoch 2. The node's record goes to ``node{id}.json``, each step's as
+    it ends to ``steps{id}.jsonl`` (``steps{id}r.jsonl`` for a
+    replacement), each epoch it reconfigured to to ``epoch{id}_{e}``;
+    a replacement marks ``ready{id}`` once it has hydrated, and each node
+    ``go{id}_{e}`` once past its one-off work in epochs 0 and 2. The
+    node times its publishes (through ``LoggedKV``), reconfigures and
+    hydrate, and a host snapshot of its final state, which is what it
+    compares with the uninterrupted run."""
+    from tensorflowonspark_tpu_torch.compute import elastic
+    from tensorflowonspark_tpu_torch.compute.checkpoint import CheckpointManager
+    from tensorflowonspark_tpu_torch.ops import bn_kernels as bn
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.utils import failpoints
+
+    c = {**ELASTIC, **args.get("sizes", {})}
+    eid = ctx.executor_id
+    device = torch.device(args["device"])
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    cuda = device.type == "cuda"
+    out = args["out_dir"]
+    cfg = elastic_cfg(args["layers"], args.get("tiny"), c["seq"])
+    model, step, state = elastic_parts(cfg, c, device)
+    oracle = torch.load(args["oracle"], map_location="cpu", mmap=True, weights_only=True)
+
+    def dtype_changes(st) -> list:
+        return [k for k, v in state_tensors(st).items() if v.dtype != oracle[k].dtype]
+
+    chief = eid == 0 and not args.get("rejoin")
+    sets, publishes = [], []
+    ctx.mgr = LoggedKV(ctx.mgr, elastic.STATE_KEY, sets)
+    trainer = elastic.ElasticTrainer(
+        ctx, publish_steps=10**9, checkpoint_dir=args["ckpt_dir"] if chief else None)
+    fa.reset_launches()
+    bn.reset_launches()
+    start, hydrate = 0, None
+    if args.get("rejoin"):
+        t0, t1 = time.time(), time.perf_counter()
+        (start, state), outcome = with_outcome(trainer.hydrate)
+        if state is None:
+            raise RuntimeError(f"the replacement found nothing to hydrate from: {outcome}")
+        hydrate = {"step": start, "t_start": t0, "at": time.time(), "outcome": outcome,
+                   "seconds": time.perf_counter() - t1, "dtype_changes": dtype_changes(state)}
+        adopt(model, state.params)
+        open(os.path.join(out, f"ready{eid}"), "w").close()
+    steps, outcomes, save_s = [], [], None
+    i = start
+    while i < c["steps"]:
+        # the first nodes wait for each membership change at its step
+        # (node 1 is killed while it waits at the first)
+        if not args.get("rejoin") and i in c["hold"]:
+            want = list(c["hold"]).index(i) + 1
+            if trainer.epoch < want:
+                elastic.wait_for_epoch(want, timeout=c["wait_s"])
+            if chief and want == 2:
+                _wait_for(lambda: os.path.exists(os.path.join(out, "ready1")), c["wait_s"],
+                          "the replacement to hydrate")
+        if trainer.changed():
+            epoch = elastic.current_epoch()
+            if chief and epoch >= 2:
+                failpoints.arm("elastic.reshard_gather", "raise", count=1)
+            n_sets, reshard0, t1 = len(sets), reshard_seconds(), time.perf_counter()
+            (state, _), outcome = with_outcome(lambda: trainer.reconfigure(state))
+            call_s, reshard_s = time.perf_counter() - t1, reshard_seconds() - reshard0
+            adopt(model, state.params)
+            if len(sets) > n_sets:  # its publish: the rest of the call
+                label = i if trainer.resume_step is None else trainer.resume_step
+                publishes.append({"step": label, "seconds": call_s - reshard_s, **sets[-1]})
+            outcomes.append({"epoch": trainer.epoch, "outcome": outcome,
+                             "resume_step": trainer.resume_step, "at_step": i,
+                             "seconds": reshard_s, "call_s": call_s,
+                             "dtype_changes": dtype_changes(state)})
+            open(os.path.join(out, f"epoch{eid}_{trainer.epoch}"), "w").close()
+            if trainer.resume_step is not None:
+                i = trainer.resume_step
+        if sum(s["epoch"] == trainer.epoch for s in steps) == {0: c["ckpt_step"], 2: 1}.get(
+                trainer.epoch):
+            # in an epoch with two nodes, past its one-off work there (the
+            # snapshot published after its first step, node 0's checkpoint),
+            # each waits for the other, so that the rest of their steps
+            # share the card
+            open(os.path.join(out, f"go{eid}_{trainer.epoch}"), "w").close()
+            _wait_for(lambda: os.path.exists(os.path.join(out, f"go{1 - eid}_{trainer.epoch}")),
+                      c["wait_s"], f"the other node's first step of epoch {trainer.epoch}")
+        batch = elastic_batch(i, c, cfg.vocab_size)
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        loss = loss.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"i": i, "loss": loss, "epoch": trainer.epoch, "ms": ms, "t": time.time()})
+        n_sets, t1 = len(sets), time.perf_counter()
+        trainer.publish(state, i + 1)
+        if len(sets) > n_sets:
+            publishes.append({"step": i + 1, "seconds": time.perf_counter() - t1, **sets[-1]})
+        if chief and i + 1 == c["ckpt_step"]:
+            with CheckpointManager(args["ckpt_dir"], async_save=False) as mgr:
+                t1 = time.perf_counter()
+                mgr.save(i + 1, state)
+                save_s = time.perf_counter() - t1
+        with open(os.path.join(out, f"steps{eid}{'r' if args.get('rejoin') else ''}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(steps[-1]) + "\n")
+        i += 1
+    launches, bn_launches = dict(fa.LAUNCHES), dict(bn.LAUNCHES)
+    t1 = time.perf_counter()
+    mine = state_tensors(elastic.host_snapshot(state))
+    snapshot = {"seconds": time.perf_counter() - t1,
+                "bytes": sum(v.numel() * v.element_size() for v in mine.values())}
+    unequal, gaps = [], {}
+    for k, ref in oracle.items():
+        got = mine[k]
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            unequal.append(k)
+            gaps[k] = (got.double() - ref.double()).abs().max().item() \
+                if got.shape == ref.shape else None
+    result = {
+        "executor_id": eid, "rejoin": bool(args.get("rejoin")), "start": start,
+        "hydrate": hydrate, "outcomes": outcomes, "steps": steps, "publishes": publishes,
+        "snapshot": snapshot, "final_epoch": trainer.epoch, "launches": launches,
+        "bn_launches": bn_launches, "steps_run": len(steps), "save_s": save_s,
+        "tensors": len(oracle),
+        "state_bytes": sum(v.numel() * v.element_size()
+                           for v in state_tensors(state).values()),
+        "unequal": unequal[:10],
+        "n_unequal": len(unequal), "max_gap": max((g for g in gaps.values() if g is not None),
+                                                  default=0.0),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
+    }
+    with open(os.path.join(out, f"node{eid}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def host_free_gb() -> float:
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) / 1e6
+
+
+def _wait_for(pred, timeout, what):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"elastic phase: timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def _read(path, default=None):
+    try:
+        with open(path) as f:
+            return f.read()
+    except FileNotFoundError:
+        return default
+
+
+def elastic_summary(r: dict, others: list, oracle_losses: list) -> dict:
+    """The numbers and checks of one node's record; ``others`` are the
+    other nodes' steps, which tell which of this node's ran beside one."""
+    steps = r["steps"]
+    bad_loss = [s["i"] for s in steps if s["loss"] != oracle_losses[s["i"]]]
+    order = [s["i"] for s in steps]
+    rewinds = [(a, b) for a, b in zip(order, order[1:]) if b != a + 1]
+    theirs = [(s["t"] - s["ms"] / 1e3, s["t"]) for s in others]
+
+    def shared(s) -> bool:  # the other node stepped for over half of this step
+        a = s["t"] - s["ms"] / 1e3
+        return sum(max(0.0, min(s["t"], e) - max(a, b)) for b, e in theirs) > s["ms"] / 2e3
+
+    def ms(pred):  # median, leaving out each node's first step of an epoch
+        xs = [s["ms"] for k, s in enumerate(steps)
+              if k > 0 and steps[k - 1]["epoch"] == s["epoch"] and pred(s)]
+        return (float(np.median(xs)), len(xs)) if xs else (None, 0)
+
+    return {
+        "bad_losses": bad_loss, "rewinds": rewinds,
+        # (median ms, steps): stepping beside the other node, in epoch 0 and
+        # again in epoch 2, and alone on the card
+        "steps_ms": {"two_nodes_epoch0": ms(lambda s: s["epoch"] == 0 and shared(s)),
+                     "one_node": ms(lambda s: not shared(s)),
+                     "two_nodes_again": ms(lambda s: s["epoch"] >= 2 and shared(s))},
+    }
+
+
+def _drive_elastic(cluster, args, c, out_dir, timeline):
+    """Kill node 1, wait for the departure bump and node 0's reconfigure,
+    launch the replacement, wait for its admission and for supervise();
+    returns the failures of supervise()."""
+    import signal
+    import threading
+
+    sup_err: list = []
+
+    def supervise():
+        try:
+            cluster.supervise(poll=0.5)
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            sup_err.append(repr(e))
+
+    sup = threading.Thread(target=supervise, daemon=True)
+    sup.start()
+    _wait_for(lambda: all(_progress(out_dir, eid) >= c["kill_after"] for eid in (0, 1)),
+              c["wait_s"], "both nodes' first steps")
+    pid = next(n["pid"] for n in cluster.cluster_info if n["executor_id"] == 1)
+    timeline["kill"] = time.time()
+    os.kill(pid, signal.SIGKILL)
+    _wait_for(lambda: cluster.membership_epoch() >= 1, c["wait_s"], "the departure bump")
+    timeline["epoch1"] = time.time()
+    # the replacement hydrates from node 0's snapshot of epoch 1
+    _wait_for(lambda: os.path.exists(os.path.join(out_dir, "epoch0_1")), c["wait_s"],
+              "node 0's reconfigure to epoch 1")
+    timeline["launch_replacement"] = time.time()
+    cluster.launch_replacement(1, elastic_node, {**args, "rejoin": True})
+    _wait_for(lambda: cluster.membership_epoch() >= 2, c["wait_s"], "the admission bump")
+    timeline["epoch2"] = time.time()
+    sup.join(timeout=c["wait_s"] + 600)
+    if sup.is_alive():
+        sup_err.append("supervise() did not return")
+    return sup_err
+
+
+def _progress(out_dir, eid) -> int:
+    """Steps the first node ``eid`` has taken (lines of its step log)."""
+    return _read(os.path.join(out_dir, f"steps{eid}.jsonl"), "").count("\n")
+
+
+def phase_elastic(layers=16, rehearse=None):
+    """Elastic membership on the card (see the module docstring, phase 9);
+    raises SystemExit when a check fails or a node failed. ``layers`` cuts
+    the depth and ``rehearse`` can change ``sizes`` alone (chip_faults.py);
+    with ``tiny`` and ``device="cpu"`` too it runs at a tiny size on the
+    CPU."""
+    from tensorflowonspark_tpu_torch.cluster import tfcluster
+    from tensorflowonspark_tpu_torch.cluster.tfcluster import InputMode
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**ELASTIC, **rehearse.get("sizes", {})}
+    tmp = tempfile.mkdtemp(prefix="tfos_elastic_")
+    out_dir, ckpt_dir = os.path.join(tmp, "out"), os.path.join(tmp, "ckpt")
+    os.makedirs(out_dir)
+    oracle = os.path.join(tmp, "oracle.pt")
+    cfg = elastic_cfg(layers, rehearse.get("tiny"), c["seq"])
+    free0 = host_free_gb()
+    t0 = time.perf_counter()
+    oracle_losses = elastic_oracle(cfg, c, device, oracle)
+    oracle_s = time.perf_counter() - t0
+    emit({"phase": "elastic", "part": "oracle", "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "batch": c["batch"], "seq": c["seq"], "steps": c["steps"],
+          "losses": oracle_losses, "seconds": oracle_s, "host_free_gb": free0,
+          "parent_memory_reserved_gb": torch.cuda.memory_reserved() / 1e9 if cuda else None})
+    args = {"layers": layers, "device": device.type, "sizes": rehearse.get("sizes", {}),
+            "tiny": rehearse.get("tiny", False), "out_dir": out_dir, "ckpt_dir": ckpt_dir,
+            "oracle": oracle}
+    env = None if cuda else {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    t_run = time.perf_counter()
+    cluster = tfcluster.run(elastic_node, args, num_executors=2, input_mode=InputMode.TENSORFLOW,
+                            elastic=True, distributed=False, reservation_timeout=600,
+                            heartbeat_interval=c["heartbeat"], heartbeat_grace=c["grace"],
+                            env=env)
+    timeline, failures, epoch = {}, [], None
+    try:
+        failures += _drive_elastic(cluster, args, c, out_dir, timeline)
+        epoch = cluster.membership_epoch()
+        cluster.shutdown(timeout=600)  # raises with a node's traceback if it failed
+    except (RuntimeError, TimeoutError) as e:
+        failures.append(str(e)[-2000:])
+    finally:
+        exit_codes = [cluster.launcher.exitcodes()] + [
+            launcher.exitcodes() for launcher in cluster._replacement_launchers]
+        cluster.launcher.terminate()
+        for launcher in cluster._replacement_launchers:
+            launcher.terminate()
+        cluster.server.stop()
+    wall_s = time.perf_counter() - t_run
+    nodes = {}
+    for eid in (0, 1):
+        text = _read(os.path.join(out_dir, f"node{eid}.json"))
+        if text is None:
+            failures.append(f"node {eid} wrote no record (exit codes of the launchers: "
+                            f"{exit_codes}, membership epoch {epoch})")
+        else:
+            nodes[eid] = json.loads(text)
+    # the killed node's step log (its last line may be cut by the SIGKILL)
+    killed = _read(os.path.join(out_dir, "steps1.jsonl"), "").split("\n")[:-1]
+    killed = [json.loads(x) for x in killed]
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "elastic", "part": "cluster", "wall_s": wall_s, "oracle_s": oracle_s,
+          "timeline": {k: v - timeline["kill"] for k, v in timeline.items()} if timeline else {},
+          "host_free_gb_before": free0, "nvidia_smi": nvidia_smi() if cuda else None})
+    per_step = cfg.num_layers if cuda else 0
+    tol = {"unequal": 0, "bad_losses": 0, "dtype_changes": 0, "launches_per_step": per_step,
+           "survivor_outcomes": [[1, "resharded", None],
+                                 [2, "checkpoint_fallback", c["ckpt_step"]]],
+           "joiner_start": "the step of node 0's freshest published snapshot",
+           "snapshot_bytes": "the state's bytes"}
+    if failures or len(nodes) < 2:
+        emit({"phase": "elastic", "case": "elastic_checks", "err": {"failures": failures},
+              "tol": tol, "ok": False})
+        raise SystemExit("elastic phase failed: " + "; ".join(failures))
+    survivor, joiner = nodes[0], nodes[1]
+    summary = {0: elastic_summary(nodes[0], killed + nodes[1]["steps"], oracle_losses),
+               1: elastic_summary(nodes[1], nodes[0]["steps"], oracle_losses)}
+    for eid, r in nodes.items():
+        emit({"phase": "elastic", "part": "node", **r, **summary[eid]})
+    kill_to_epoch1 = next((s["t"] for s in survivor["steps"] if s["epoch"] == 1), math.inf) \
+        - timeline["kill"]
+    # the snapshot node 0 had published last when the joiner began to
+    # hydrate, or one it published while the joiner hydrated
+    hyd = joiner["hydrate"]
+    published = survivor["publishes"]
+    before = [x["step"] for x in published if x["at"] <= hyd["t_start"]]
+    fresh = set(before[-1:]) | {x["step"] for x in published
+                                if hyd["t_start"] < x["at"] <= hyd["at"]}
+    err = {
+        "epoch": epoch,
+        "survivor_outcomes": [(o["epoch"], o["outcome"], o["resume_step"])
+                              for o in survivor["outcomes"]],
+        "joiner": {"hydrate": hyd["outcome"], "start": joiner["start"],
+                   "freshest_published": sorted(fresh), "published": [x["step"] for x in published],
+                   "outcomes": [(o["epoch"], o["outcome"]) for o in joiner["outcomes"]]},
+        "unequal": {eid: r["n_unequal"] for eid, r in nodes.items()},
+        "max_gap": {eid: r["max_gap"] for eid, r in nodes.items()},
+        "bad_losses": {eid: summary[eid]["bad_losses"][:5] for eid in nodes},
+        "dtype_changes": {eid: [x for o in r["outcomes"] + [r["hydrate"] or {}]
+                                for x in o.get("dtype_changes", [])] for eid, r in nodes.items()},
+        "snapshot_bytes": {eid: r["snapshot"]["bytes"] for eid, r in nodes.items()},
+        "state_bytes": {eid: r["state_bytes"] for eid, r in nodes.items()},
+        "launches_per_step": {eid: {k: v / r["steps_run"] for k, v in r["launches"].items()}
+                              for eid, r in nodes.items()},
+        "kill_to_epoch1_s": kill_to_epoch1,
+    }
+    ok = (
+        epoch == 2
+        and err["survivor_outcomes"] == [(1, "resharded", None),
+                                         (2, "checkpoint_fallback", c["ckpt_step"])]
+        and summary[0]["rewinds"] == [(survivor["outcomes"][1]["at_step"] - 1, c["ckpt_step"])]
+        and survivor["final_epoch"] == 2 == joiner["final_epoch"]
+        and hyd["outcome"] == "peer_hydrate"
+        and joiner["start"] in fresh and len(published) >= 2
+        and not summary[1]["rewinds"]
+        and all(r["steps"][-1]["i"] == c["steps"] - 1 for r in nodes.values())
+        and all(r["n_unequal"] == 0 and r["tensors"] > 0 for r in nodes.values())
+        and not any(err["bad_losses"].values())
+        and not any(err["dtype_changes"].values())
+        and all(b == nodes[eid]["state_bytes"] for eid, b in err["snapshot_bytes"].items())
+        and all(v == {"fwd": per_step, "dq": per_step, "dkv": per_step}
+                for v in err["launches_per_step"].values())
+        and math.isfinite(kill_to_epoch1)
+    )
+    emit({"phase": "elastic", "case": "elastic_checks", "err": err, "tol": tol, "ok": ok})
+    if not ok:
+        raise SystemExit("elastic phase failed")
+    return ({k: sum(r["launches"][k] for r in nodes.values()) for k in ("fwd", "dq", "dkv")},
+            {k: sum(r["bn_launches"][k] for r in nodes.values()) for k in ("pair", "cross")})
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1464,15 +1958,19 @@ def main() -> int:
         "train_losses": train["losses"], "train_step_ms": train_step_ms,
         "train_profile": train["profile"], "conv_losses": conv_losses})
     emit({"phase": "mesh", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    elastic_flash, elastic_bn = phase_elastic()
+    emit({"phase": "elastic", "wall_s": time.perf_counter() - t0})
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
-         "mesh_launches": mesh_flash[kind], **rows[kind]}
+         "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
+         **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
-         "mesh_launches": mesh_bn[kind], **bn_rows[kind]}
+         "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)

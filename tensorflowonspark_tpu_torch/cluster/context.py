@@ -21,14 +21,21 @@ Port of :mod:`tensorflowonspark_tpu.cluster.context`. Changes from it:
   name another); :meth:`shutdown_distributed` leaves the group.
 - :meth:`mesh` builds a ``DeviceMesh`` over the process group's ranks
   (``compute.mesh.make_mesh``) on the node's device type.
-- :meth:`membership` and :meth:`reinitialize_distributed` raise
-  ``NotImplementedError`` (elastic membership is ROADMAP A8b), as does
-  :meth:`get_ingest_feed` (the pull plane is ROADMAP A12).
+- The group meets at a ``TCPStore`` that the context keeps (the
+  coordinator's node hosts it), under a prefix per membership epoch:
+  :meth:`reinitialize_distributed` destroys the process group and joins a
+  new one over the survivors, reusing the store while its host survives
+  (a survivor cannot bind the port a second time) and starting one at the
+  new coordinator otherwise. A rebuilt group has a finite timeout
+  (``REBIND_TIMEOUT_S``), so a dead peer is an error, not a hang.
+- :meth:`get_ingest_feed` raises ``NotImplementedError`` (the pull plane
+  is ROADMAP A12).
 - :meth:`export_saved_model` writes the port's torch checkpoint.
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
 from dataclasses import dataclass, field
 from typing import Any
@@ -36,6 +43,11 @@ from typing import Any
 from tensorflowonspark_tpu_torch.feed.datafeed import DataFeed
 
 logger = logging.getLogger(__name__)
+
+# Collective and store timeout of a group rebuilt by
+# reinitialize_distributed: a peer that died during the rebind fails it
+# within this many seconds instead of hanging it.
+REBIND_TIMEOUT_S = 120.0
 
 
 def device_of_args(tf_args: Any) -> str | None:
@@ -62,6 +74,10 @@ class TFNodeContext:
     log_dir: str | None = None
     extras: dict[str, Any] = field(default_factory=dict)
     device: Any = None  # None: CUDA (see device_of_args)
+    # the TCPStore the process group meets at, and the coordinator
+    # (host, port, pid) that hosts it
+    _store: Any = field(default=None, repr=False)
+    _store_host: Any = field(default=None, repr=False)
 
     # --- reference-compat aliases -------------------------------------
     @property
@@ -177,18 +193,41 @@ class TFNodeContext:
                 )
             torch.cuda.set_device(device)
         self.device = device
-        dist.init_process_group(
-            backend="nccl" if device.type == "cuda" else "gloo",
-            init_method=f"tcp://{self.coordinator_address}",
-            world_size=self.num_workers,
-            rank=self.executor_id,
-        )
+        host, port = self.coordinator_address.rsplit(":", 1)
+        chief = next((n for n in self.cluster_info
+                      if n.get("host") == host and str(n.get("port")) == port), {})
+        self._join_group(self.executor_id, self.num_workers, (host, int(port), chief.get("pid")),
+                         generation=0, timeout=dist.default_pg_timeout)
         logger.info(
             "torch.distributed initialized (%s): rank %d/%d, coordinator %s",
             dist.get_backend(),
             self.executor_id,
             self.num_workers,
             self.coordinator_address,
+        )
+
+    def _join_group(self, rank: int, world: int, coordinator: tuple, generation: int,
+                    timeout: datetime.timedelta) -> None:
+        """Join the default process group as ``rank`` of ``world`` at the
+        store of ``coordinator`` (host, port, pid), under the prefix of
+        ``generation``, with ``timeout`` for the group's collectives and the
+        store's waits. The store is kept: a later rebind at a coordinator
+        that is still the same process reuses it."""
+        import torch.distributed as dist
+
+        if self._store is None or self._store_host != coordinator:
+            host, port, _pid = coordinator
+            self._store = dist.TCPStore(host, port, is_master=rank == 0, timeout=timeout,
+                                        wait_for_workers=False)
+            self._store_host = coordinator
+        # a store passed to init_process_group keeps its own timeout
+        self._store.set_timeout(timeout)
+        dist.init_process_group(
+            backend="nccl" if self.device.type == "cuda" else "gloo",
+            store=dist.PrefixStore(f"membership/{generation}", self._store),
+            world_size=world,
+            rank=rank,
+            timeout=timeout,
         )
 
     def shutdown_distributed(self) -> None:
@@ -204,12 +243,71 @@ class TFNodeContext:
 
     # --- elastic membership ----------------------------------------------
     def membership(self) -> tuple[int, list[dict[str, Any]]]:
-        raise NotImplementedError("elastic membership is not ported yet: ROADMAP A8b")
+        """(membership epoch, active roster) as last published by the
+        driver (``compute/elastic.py`` watcher, fed by the heartbeater).
+        Before any reconfigure: ``(0, cluster_info)`` — the startup
+        barrier roster IS epoch 0."""
+        from tensorflowonspark_tpu_torch.compute import elastic
+
+        epoch, roster = elastic.membership()
+        return epoch, (self.cluster_info if roster is None else roster)
 
     def reinitialize_distributed(
         self, roster: list[dict[str, Any]]
     ) -> None:
-        raise NotImplementedError("elastic membership is not ported yet: ROADMAP A8b")
+        """Rebind this process to a reconfigured cluster (elastic plane).
+
+        Updates the context's roster bookkeeping (``cluster_info``,
+        ``num_workers``, ``coordinator_address``) and — in
+        multi-controller mode — leaves the old process group and joins
+        a new one over the roster: the lowest surviving executor hosts
+        the coordinator, and ranks are the roster order (a dense 0..n−1
+        id space, which executor ids no longer are after a departure).
+        The group meets under the current membership epoch's prefix, with
+        a timeout of ``REBIND_TIMEOUT_S``; the sub-meshes cut from meshes
+        of the old group are dropped (``compute.layout.dtensor_mesh``), so
+        a mesh made after this call spans the new group.
+        Single-controller-per-node runs (``distributed=False``) only
+        update the bookkeeping — their local runtime never spanned the
+        dead peer.
+        """
+        roster = sorted(roster, key=lambda n: n["executor_id"])
+        if not roster:
+            raise ValueError("cannot reconfigure to an empty roster")
+        ids = [n["executor_id"] for n in roster]
+        if self.executor_id not in ids:
+            # A node the driver removed (false-positive death verdict,
+            # voluntary leave) must not rebind as if it were a member —
+            # and must get a clear diagnosis, not a StopIteration.
+            raise RuntimeError(
+                f"executor {self.executor_id} is not in the new "
+                f"membership {ids}; this node was removed — rejoin via "
+                "registration, do not reconfigure"
+            )
+        self.cluster_info = roster
+        self.num_workers = len(roster)
+        chief = roster[0]
+        self.coordinator_address = f"{chief['host']}:{chief['port']}"
+        if not self.distributed:
+            return
+        import torch.distributed as dist
+
+        from tensorflowonspark_tpu_torch.compute import elastic, layout
+
+        rank = ids.index(self.executor_id)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        layout.drop_submeshes()
+        self._join_group(rank, len(roster), (chief["host"], int(chief["port"]), chief.get("pid")),
+                         generation=elastic.current_epoch(),
+                         timeout=datetime.timedelta(seconds=REBIND_TIMEOUT_S))
+        logger.info(
+            "torch.distributed re-initialized (%s): rank %d/%d, coordinator %s",
+            dist.get_backend(),
+            rank,
+            len(roster),
+            self.coordinator_address,
+        )
 
     def mesh(self, axis_shapes: dict[str, int] | None = None):
         """Build the device mesh for this cluster (every rank of the

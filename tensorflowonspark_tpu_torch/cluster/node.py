@@ -15,8 +15,7 @@ path.
 Port of :mod:`tensorflowonspark_tpu.cluster.node`. Changes from it: the
 context carries the node's device from its args
 (``context.device_of_args``), and a process group joined by
-``initialize_distributed`` is left when ``map_fun`` returns; a membership
-epoch from the heartbeat raises (elastic membership is ROADMAP A8); no
+``initialize_distributed`` is left when ``map_fun`` returns; no
 ``jax.profiler`` server is started (ROADMAP A12). The shm feed ring is
 not ported (``native/shmring.py`` reports it unavailable, ROADMAP A7), so
 feeders take the TCP manager path.
@@ -303,10 +302,11 @@ def _start_heartbeater(
         epoch = int(epoch)
         try:
             info = client.membership()
-            raise NotImplementedError(
-                "elastic membership is not ported yet: ROADMAP A8 "
-                f"(epoch {info['epoch']})"
-            )
+            # Lazy: compute.elastic stays unimported on the (common)
+            # epoch-0-forever path.
+            from tensorflowonspark_tpu_torch.compute import elastic
+
+            elastic.notify_membership(info["epoch"], info["roster"])
         except Exception as e:  # noqa: BLE001 - next beat retries
             logger.warning("membership refetch failed: %s", e)
             return None

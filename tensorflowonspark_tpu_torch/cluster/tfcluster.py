@@ -18,8 +18,7 @@ Port of :mod:`tensorflowonspark_tpu.cluster.tfcluster`. Where the JAX
 package reaches a module the port does not have yet, the port raises
 ``NotImplementedError`` naming its ROADMAP item (``_not_ported``):
 feeding a DStream, ``assign_shards``/``extend_shards``, ``run_online``
-and the ingest plan (A12); ``elastic=True`` and ``launch_replacement``
-(A8).
+and the ingest plan (A12).
 """
 
 from __future__ import annotations
@@ -1358,7 +1357,6 @@ class TFCluster:
         notices the pending registration and admits it with an epoch
         bump. The replacement's ``map_fun`` typically hydrates via
         ``ElasticTrainer.hydrate()`` before training."""
-        _not_ported("launch_replacement (elastic membership)", "A8")
         if executor_id not in self._snapshot_departed():
             raise ValueError(
                 f"executor {executor_id} has not departed; replacements "
@@ -1797,7 +1795,6 @@ def run(
     if num_executors < 1:
         raise ValueError("num_executors must be >= 1")
     if elastic:
-        _not_ported("elastic=True (compute/elastic.py)", "A8")
         # Elastic reconfigure replays data from (epoch, step) — nodes
         # must own their readers. A push feed's consumed partitions
         # cannot be reassigned by the driver (same constraint as

@@ -1,5 +1,10 @@
-"""Optimizers and the single-device train and eval steps."""
+"""Optimizers, the train and eval steps, and elastic training."""
 
+from tensorflowonspark_tpu_torch.compute.elastic import (  # noqa: F401
+    ElasticTrainer,
+    host_snapshot,
+    reshard_state,
+)
 from tensorflowonspark_tpu_torch.compute.optim import (  # noqa: F401
     adamw,
     mixed_precision_adamw,

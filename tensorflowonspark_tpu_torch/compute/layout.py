@@ -400,6 +400,12 @@ def dtensor_mesh(mesh):
 _SUBMESHES: dict[int, tuple] = {}
 
 
+def drop_submeshes() -> None:
+    """Forget every cut mesh: after the process group is destroyed and
+    joined again (an elastic rebind) they span a group that is gone."""
+    _SUBMESHES.clear()
+
+
 def placements(mesh, spec: tuple) -> tuple:
     """The DTensor placements of ``spec`` over ``dtensor_mesh(mesh)``:
     ``Shard(d)`` on each of its dims that the spec puts on tensor dim

@@ -9,7 +9,7 @@ result stays contiguous NHWC).
 
 Dropout (``dropout_rate > 0``) draws from an explicit ``torch.Generator``;
 its bits cannot match JAX's, so the port is held to the JAX package at
-rate 0 only. ``inception_param_shardings`` waits for ROADMAP A8.
+rate 0 only. ``inception_param_shardings`` is ``models.conv.conv_param_shardings``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ of a bottleneck block sits on its 3×3 conv. Parameter names are the flax
 paths (``_ConvBN_0.Conv_0.weight``, ``BottleneckBlock_0._ConvBN_1.BatchNorm_0.scale``
 …); running statistics are buffers (``….BatchNorm_0.mean``/``var``).
 
-``resnet_param_shardings`` waits for ROADMAP A8.
+``resnet_param_shardings`` is ``models.conv.conv_param_shardings``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ final grid is flattened in H, W, C order (``vgg.py:79``), so fc6's weights
 carry over from the flax tree unchanged; fc6/fc7 run in ``cfg.dtype``, the
 head in fp32.
 
-``vgg_param_shardings`` waits for ROADMAP A8.
+``vgg_param_shardings`` is ``models.conv.conv_param_shardings``.
 """
 
 from __future__ import annotations

@@ -65,10 +65,9 @@ VERBATIM = [
 # other line is the original's
 PATCHED = {
     "obs/spans.py": [(39, 38), (72, 71), (76, 76), (78, 79)],
-    "cluster/node.py": [(14, 13), (33, 33), (232, 231), (244, 243), (295, 299), (489, 493),
-                        (495, 513)],
+    "cluster/node.py": [(14, 13), (33, 33), (232, 231), (244, 243), (489, 493), (495, 513)],
     "cluster/tfcluster.py": [(16, 15), (37, 36), (335, 344), (864, 864), (934, 934), (986, 986),
-                             (1066, 1066), (1193, 1196), (1359, 1358), (1797, 1796)],
+                             (1066, 1066), (1193, 1196)],
     "feed/datafeed.py": [(13, 12), (585, 584), (586, 586), (589, 589), (596, 596), (614, 618)],
     # a stopped server's accepter parked instead of spinning on its closed
     # listener (test_stopped_manager_does_not_spin)
@@ -243,8 +242,13 @@ def test_synchronized_batch_stream_stops_gloo_nodes_together(tmp_path):
 
 
 def test_unported_branches_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    # elastic membership is ported (tests/test_torch_elastic.py): run()
+    # keeps the JAX package's two refusals of elastic=True
+    with pytest.raises(ValueError, match="InputMode.TENSORFLOW"):
         tfcluster.run(cluster_fns.sum_fn, {}, num_executors=1, elastic=True)
+    with pytest.raises(ValueError, match="heartbeat_interval"):
+        tfcluster.run(cluster_fns.sum_fn, {}, num_executors=1, elastic=True,
+                      input_mode=InputMode.TENSORFLOW, heartbeat_interval=0)
     # the device mesh is ported (tests/test_torch_mesh.py): a mesh and a
     # device together are refused
     with pytest.raises(ValueError, match="not both"):

@@ -320,11 +320,29 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu(capsys):
     assert not torch.distributed.is_initialized()
 
 
+def test_chip_smoke_elastic_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase elastic runs on the CPU at a tiny size: a node is
+    SIGKILLed, the survivor reshards, a replacement hydrates from it, the
+    survivor's checkpoint fallback rewinds, and both end bit-equal to the
+    uninterrupted run."""
+    smoke = _import_root_module("chip_smoke")
+    flash, bn = smoke.phase_elastic(rehearse={"device": "cpu", "tiny": True, "sizes": {
+        "batch": 2, "seq": 32, "vocab": 256, "lr": 1e-2, "wait_s": 60.0, "grace": 3.0}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "elastic_checks" and check["ok"]
+    assert check["err"]["unequal"] == {"0": 0, "1": 0}
+    assert check["err"]["joiner"]["hydrate"] == "peer_hydrate"
+    assert flash == {"fwd": 0, "dq": 0, "dkv": 0} and bn == {"pair": 0, "cross": 0}
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
           "prefetch_no_fence", "ckpt_no_snapshot", "mesh_attention_plain",
-          "mesh_restore_skips_opt_state", "mesh_bn_plain"]
+          "mesh_restore_skips_opt_state", "mesh_bn_plain", "reshard_drops_opt_state",
+          "snapshot_casts_bf16", "hydrate_stale_step", "fallback_no_rewind",
+          "heartbeat_ignores_epoch", "elastic_plain_attention"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
