@@ -29,13 +29,18 @@ nodes' attention (a SIGKILLed node, a reconfigure in memory, a
 replacement hydrated from its peer, a checkpoint fallback with its rewind;
 the outcomes, the replacement's start step, every loss and the final
 state against an uninterrupted run bit for bit, the state's dtypes and
-bytes after each reconfigure, and the kernels' launches).
+bytes after each reconfigure, and the kernels' launches), and
+``chip_smoke.phase_decode`` at 4 layers for ``models/llama.py``'s decode
+(the cached attention against fp64 with large logits, a mixed-length
+greedy decode against a teacher-forced forward, the eos early exit, the
+int8 and rolling caches, scoring and the CLI).
 Faults that show only across ranks (a dropped ``all_reduce``, a rank's
 rows lost from an uneven split) cannot show on one card; the CPU tests
 plant those at 2 ranks (``tests/test_torch_mesh.py``). The unchanged
-copy runs every check once. The children run at once, but those of the
-elastic check (the unchanged copy's and the elastic faults', two or three
-node processes each) run three at a time once the others have ended. Each prints its check lines; this script prints one
+copy runs every check once. The children run at once, then those of the
+decode check (a llama_1b of 4 layers each, and two CLI processes) at once,
+then those of the elastic check (the unchanged copy's and the elastic
+faults', two or three node processes each) three at a time. Each prints its check lines; this script prints one
 JSON line per fault with the readings of the last, and exits non-zero
 unless the checks pass the unchanged sources and refuse every fault.
 """
@@ -58,12 +63,14 @@ ATTENTION = Path("tensorflowonspark_tpu_torch/ops/attention.py")
 BN_ROUTE = Path("tensorflowonspark_tpu_torch/ops/bn_kernels.py")
 ELASTIC = Path("tensorflowonspark_tpu_torch/compute/elastic.py")
 NODE = Path("tensorflowonspark_tpu_torch/cluster/node.py")
+LLAMA = Path("tensorflowonspark_tpu_torch/models/llama.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
+DECODE_CHECK = "phase_decode(fa, layers=4)"
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
           CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
-          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK}
+          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK}
 # faults whose check is not their source's
 FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
                 "elastic_plain_attention": ELASTIC_CHECK}
@@ -216,6 +223,44 @@ FAULTS = {
         'return "flash" if on_cuda and _flash_shapes_ok(q, k, segment_ids) else "xla"',
         'return "xla"',
     ),
+    # decode: a query no longer sees its own slot
+    "decode_slot_mask_strict": (
+        LLAMA,
+        "mask = key_pos[None, None, None, None, :] <= slot_q[:, None, None, :, None]",
+        "mask = key_pos[None, None, None, None, :] < slot_q[:, None, None, :, None]",
+    ),
+    # a rolling cache's position plane starts at 0, so unwritten slots pass
+    # for position 0
+    "rolling_pos_init_zero": (
+        LLAMA,
+        "torch.full((batch, c), -1 if rolling else 0, dtype=torch.int32,",
+        "torch.full((batch, c), 0, dtype=torch.int32,",
+    ),
+    # int8 decode: the V scale is not applied to the probabilities
+    "int8_drop_v_scale": (
+        LLAMA,
+        'probs = probs * cache["v_scale"][:, :, None, None, :]',
+        "probs = probs",
+    ),
+    # padded prefill: each row's first token comes from the padded last
+    # position, not its true last one
+    "first_token_padded_position": (
+        LLAMA,
+        "last = logits[torch.arange(b, device=prompt.device), lengths - 1]",
+        "last = logits[:, -1]",
+    ),
+    # eos: a finished row goes on emitting what it decodes
+    "eos_not_sticky": (
+        LLAMA,
+        "nxt = torch.where(done, eos_id, nxt)  # eos stays in finished rows",
+        "nxt = nxt  # eos stays in finished rows",
+    ),
+    # the QK^T logits of a bf16 cache are rounded to bf16 before the softmax
+    "qk_logits_bf16": (
+        LLAMA,
+        "return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)",
+        "return torch.bmm(q, k.transpose(1, 2)).float()",
+    ),
 }
 
 
@@ -257,38 +302,33 @@ def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Pope
                                 stdout=log, stderr=subprocess.STDOUT)
 
 
-def jobs() -> tuple[list, list]:
-    """(label, fault, checks) of the children: those that run at once, and
-    those of the elastic check (two or three node processes each), which
-    run ELASTIC_AT_ONCE at a time after the first have ended."""
+# checks whose children run after the others, in this order: check ->
+# (label, how many children at once)
+LATER = {DECODE_CHECK: ("decode", 7), ELASTIC_CHECK: ("elastic", 3)}
+
+
+def jobs() -> list[tuple[list, int]]:
+    """Stages of (label, fault, checks) children, each with how many run at
+    once: every check but those of LATER at once, then each of LATER's."""
     every = list(dict.fromkeys([*CHECKS.values(), *FAULT_CHECKS.values()]))
-    first = [("none", "none", [c for c in every if c != ELASTIC_CHECK])]
-    later = [("none:elastic", "none", [ELASTIC_CHECK])]
+    first = [("none", "none", [c for c in every if c not in LATER])]
+    later = {check: [(f"none:{label}", "none", [check])] for check, (label, _) in LATER.items()}
     for name in FAULTS:
-        (later if check_of(name) == ELASTIC_CHECK else first).append((name, name, [check_of(name)]))
-    return first, later
-
-
-ELASTIC_AT_ONCE = 3
+        check = check_of(name)
+        (later[check] if check in LATER else first).append((name, name, [check]))
+    return [(first, len(first))] + [(later[c], n) for c, (_, n) in LATER.items()]
 
 
 def run_all(workdir: Path) -> dict:
     """Every child's (return code, output), by label."""
-    first, later = jobs()
     done = {}
-
-    def finish(label, proc):
-        proc.wait(timeout=900)
-        done[label] = (proc.returncode, (workdir / label / "output.log").read_text())
-
-    procs = [(label, start(label, name, checks, workdir)) for label, name, checks in first]
-    for label, proc in procs:
-        finish(label, proc)
-    for i in range(0, len(later), ELASTIC_AT_ONCE):
-        procs = [(label, start(label, name, checks, workdir))
-                 for label, name, checks in later[i:i + ELASTIC_AT_ONCE]]
-        for label, proc in procs:
-            finish(label, proc)
+    for stage, at_once in jobs():
+        for i in range(0, len(stage), at_once):
+            procs = [(label, start(label, name, checks, workdir))
+                     for label, name, checks in stage[i:i + at_once]]
+            for label, proc in procs:
+                proc.wait(timeout=900)
+                done[label] = (proc.returncode, (workdir / label / "output.log").read_text())
     return done
 
 

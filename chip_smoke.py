@@ -2,6 +2,7 @@
 then train llama_1b and the BatchNorm conv nets for a few steps through them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-seeds 1 2 3   # phase decode alone, per seed
 
 Phases (one JSON line each, or more; any failure exits non-zero):
 
@@ -107,11 +108,37 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    Reports each node's step ms with two nodes on the card, one, and two
    again, kill-to-next-epoch seconds, the snapshot, publish, reconfigure
    and hydrate seconds and bytes, and peak device memory.
+10. decode — KV-cache decode and scoring of ``LlamaConfig.llama_1b`` at full
+   width and depth, weights from seed 0 cast once to bf16 (limits in
+   ``DECODE_TOL``): (attn) the cached attention at the decode shape (batch
+   8, a full cache of 1024 slots) against its math in fp64, with logits of
+   rms ~9; (a) ``generate`` over 8 right-padded prompts of seeded lengths
+   64–512 in width 512, 256 new tokens, its logits (captured by driving
+   ``prefill``/``decode_step`` as ``generate`` does) against a
+   teacher-forced forward without a cache at every generated position, and
+   its tokens against that forward's argmax wherever the top-2 gap exceeds
+   the limit; (b) at batch 1 and 8, prompt 128: prefill ms, ms per decode
+   step, tokens/s, the step's byte bound (bf16 weights plus the whole cache
+   the step reads) and its share, host issue ms against device busy ms over
+   two profiled steps, a whole ``generate`` of 256 tokens, peak device
+   memory; (c) ``eos_id`` on rows of (a) that share a token: each row is
+   its (a) decode up to its first eos, then eos, and the loop stops after
+   the last row's first eos (steps counted); (d) an int8 cache on (a)'s
+   tokens, logits against the bf16 cache's, and the caches' bytes; (e) a
+   rolling cache (window 256, 512 slots) against the dense windowed cache,
+   prompt 256 and 384 new tokens (the cache wraps); (f) ``build_score_fn``
+   at width 513, whose forward sends 512 positions to B1 (16 launches a
+   call), logprobs against the plain attention; (g) ``python -m
+   tensorflowonspark_tpu_torch.tools.generate_text`` as two subprocesses
+   on the card (decode and ``--score``) over a checkpoint that
+   ``save_checkpoint`` wrote of those weights, against the in-process
+   ``decode_batches`` and scorer.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
 sum over its 53 BatchNorm layers; ``mesh_launches`` counts phase mesh's
-timed steps, ``elastic_launches`` phase elastic's steps in both nodes),
+timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
+``score_launches`` phase decode's scoring call),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -443,8 +470,10 @@ def profile_steps(run_step, n=2, model=None):
             run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds, kernels, update_ms = {}, [], 0.0
+    kinds, kernels, update_ms, aten_calls = {}, [], 0.0, 0
     for evt in prof.key_averages():
+        if evt.key.startswith("aten::"):
+            aten_calls += evt.count  # nested calls included: the host's dispatch count
         dev_us = getattr(evt, "self_device_time_total", 0) or 0
         if evt.key == WEIGHT_UPDATE_SCOPE:
             update_ms = (getattr(evt, "device_time_total", 0) or 0) / 1e3 / n
@@ -459,6 +488,7 @@ def profile_steps(run_step, n=2, model=None):
     line = {"phase": "profile", "model": model, "steps": n, "wall_ms_per_step": wall_ms / n,
           "device_busy_ms_per_step": busy, "device_idle_share": 1 - busy * n / wall_ms,
           "device_ms_by_kind": kinds, "weight_update_device_ms": update_ms,
+          "aten_calls_per_step": aten_calls / n,
           "top_kernels": [dict(ms=k[0], launches=k[1], kind=k[2], name=k[3])
                           for k in kernels[:15]],
           "port_kernels": [dict(ms=k[0], launches=k[1], name=k[3]) for k in kernels
@@ -1937,7 +1967,447 @@ def phase_elastic(layers=16, rehearse=None):
     return ({k: sum(r["launches"][k] for r in nodes.values()) for k in ("fwd", "dq", "dkv")},
             {k: sum(r["bn_launches"][k] for r in nodes.values()) for k in ("pair", "cross")})
 
-def main() -> int:
+
+# phase decode: sizes (a CPU rehearsal passes smaller ones)
+DECODE = dict(batch=8, width=512, min_len=64, new=256, time_prompt=128, time_steps=32,
+              int8_steps=64, roll_batch=2, roll_window=256, roll_cache=512, roll_prompt=256,
+              roll_new=384, score_width=513, attn_scale=3.0)
+# Limits of phase decode, bf16 at llama_1b. "logits": the decode's logits at
+# every generated position against a teacher-forced forward without a cache
+# (flash attention over the whole row), max |diff|; a token must equal that
+# forward's argmax where its top-2 gap exceeds the same limit. "attention":
+# the cached attention's output at the decode shape against the same math
+# in fp64 (probabilities rounded to bf16 as the reference rounds them),
+# atol_rms at rtol 2^-7 and frob (compare()); on the CPU, with logits of rms
+# 9, the port reads 0.0 and 0.0016, and logits rounded to bf16 0.157 and
+# 0.021. "int8": int8-cache logits against the
+# bf16 cache's on the same tokens, max |diff|. "rolling": the rolling cache's
+# logits against the dense windowed cache's, max |diff|. "score": scoring
+# logprobs through flash (B1) against the plain attention, max |diff|.
+# "cli_score": the CLI's --score against the in-process scorer, max |diff|.
+# logits, int8, rolling and score are each twice the largest sound reading
+# over seeds 0-3 (``--decode-seeds``; H100, full depth), rounded up to a
+# tenth: largest readings 0.148, 0.195, 0.102 and 0.098; the planted faults
+# of chip_faults.py read at least 1.52, 6.70 and 1.73 (none plants score).
+DECODE_TOL = dict(logits=0.3, attention=dict(atol_rms=0.05, frob=5e-3), int8=0.4, rolling=0.3,
+                  score=0.2, cli_score=1e-4)
+
+
+def retarget(model, cfg):
+    """``model`` with its config (and its layers') replaced by ``cfg``, a
+    config of the same shapes (cache, window or attention fields differ)."""
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = cfg
+    return model
+
+
+def greedy_capture(model, prompt, new, lengths=None, force=None):
+    """Drive ``prefill`` and ``decode_step`` (the functions ``generate``
+    runs) for ``new`` tokens, greedily or on the tokens ``force`` (B, new):
+    returns the tokens (B, new) and the logits that chose each (B, new, V)."""
+    from tensorflowonspark_tpu_torch.models.llama import decode_step, init_cache, prefill
+
+    b = prompt.shape[0]
+    cache = init_cache(model.cfg, b, prompt.device)
+    with torch.no_grad():
+        logits, pos = prefill(model, cache, prompt, lengths)
+        caps, toks = [logits], []
+        for t in range(new):
+            tok = logits.argmax(-1) if force is None else force[:, t]
+            toks.append(tok)
+            if t == new - 1:
+                break
+            logits = decode_step(model, cache, tok, pos, lengths is not None)
+            pos = pos + 1
+            caps.append(logits)
+    return torch.stack(toks, 1), torch.stack(caps, 1)
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for layer in cache for t in layer.values())
+
+
+def top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def decode_attention_check(cfg, device, scale, seed=5):
+    """The cached attention at the decode shape (a full cache of max_seq_len
+    slots, one query a row) against its math in fp64 on the same bf16
+    inputs, with logits of rms ``scale**2``: the port keeps the QK^T
+    logits fp32, and bf16-rounded logits would move the output by several
+    bf16 steps."""
+    from tensorflowonspark_tpu_torch.models.llama import cached_attention, init_cache
+
+    b, c, h, hk, d = 8, cfg.max_seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda s, n, x: (torch.randn(b, s, n, d, generator=g, device=device) * x).to(cfg.dtype)  # noqa: E731
+    q, k, v = mk(c, h, scale), mk(c, hk, scale), mk(c, hk, 1.0)
+    cache = init_cache(dataclasses.replace(cfg, num_layers=1), b, device)[0]
+    pos = torch.arange(c, device=device).expand(b, c)
+    with torch.no_grad():
+        cached_attention(cfg, q[:, :-1], k[:, :-1], v[:, :-1], pos[:, :-1], cache)  # the prefill
+        out = cached_attention(cfg, q[:, -1:], k[:, -1:], v[:, -1:], pos[:, -1:], cache)
+    rep = h // hk
+    q64 = q[:, -1].double().view(b, hk, rep, d)
+    logits = torch.einsum("bhrd,bkhd->bhrk", q64, k.double()) * d**-0.5
+    probs = torch.softmax(logits, dim=-1).to(cfg.dtype).double()
+    ref = torch.einsum("bhrk,bkhd->bhrd", probs, v.double()).reshape(b, 1, h, d)
+    return compare(out, ref, 2**-7), float(logits.std())
+
+
+def cli_overrides(cfg, base) -> str:
+    """The config fields where ``cfg`` differs from the CLI's preset, as
+    the JSON of ``--config-overrides``."""
+    diff = {}
+    for f in dataclasses.fields(cfg):
+        val = getattr(cfg, f.name)
+        if val != getattr(base, f.name):
+            diff[f.name] = str(val).removeprefix("torch.") if f.name == "dtype" else val
+    return json.dumps(diff)
+
+
+def eos_check(model, prompt, lengths, toks, new, err) -> bool:
+    """Phase decode (c): ``generate(eos_id=...)`` on rows of (a) that share
+    a token (the rows repeated to (a)'s batch, so every row computes as it
+    did there): each row is its (a) decode up to its first eos, then eos,
+    and the loop stops after the last row's first eos."""
+    from tensorflowonspark_tpu_torch.models.llama import generate
+
+    b = toks.shape[0]
+    host = toks.cpu().numpy()
+    shared: dict[int, list] = {}
+    for r in range(b):
+        for t in set(host[r].tolist()):
+            shared.setdefault(t, []).append(r)
+    cands = []  # (eos, rows): rows finish before the last step, one emits more after its eos
+    for t, rows in shared.items():
+        firsts = [int(np.argmax(host[r] == t)) for r in rows]
+        if len(rows) >= 2 and max(firsts) < new - 1 and any(
+                (host[r, f:] != t).any() for r, f in zip(rows, firsts)):
+            cands.append((t, rows, max(firsts)))
+    if not cands:
+        err["eos"] = {"error": "no token two rows share before their last step"}
+        return False
+    eos, rows, _ = min(cands, key=lambda x: (-len(x[1]), x[2], x[0]))
+    sel = (rows * b)[:b]
+    plain = host[sel]
+    firsts = [int(np.argmax(row == eos)) for row in plain]
+    calls = []
+    hook = model.register_forward_pre_hook(lambda *a: calls.append(1))
+    try:
+        got = generate(model, prompt[sel], new, eos_id=eos, prompt_lengths=lengths[sel])
+    finally:
+        hook.remove()
+    got = got.cpu().numpy()
+    want = plain.copy()
+    for row, f in zip(want, firsts):
+        row[f:] = eos
+    e = err["eos"] = {
+        "eos_id": eos, "rows": sel, "first_eos": firsts, "steps_run": len(calls) - 1,
+        "max_steps": new - 1, "mismatches": int((got != want).sum()),
+        "stickiness_exercised": bool(any((row[f:] != eos).any() for row, f in zip(plain, firsts))),
+    }
+    return e["mismatches"] == 0 and e["steps_run"] == max(firsts) < new - 1 \
+        and e["stickiness_exercised"]
+
+
+def run_cli(model, prompts, rows, cfg, preset, model_flag, device, tmp, new) -> dict:
+    """Phase decode (g): save the weights with ``save_checkpoint`` and start
+    ``python -m tensorflowonspark_tpu_torch.tools.generate_text`` twice on
+    ``device`` (decode ``prompts``, ``--score`` ``rows``); returns the
+    processes."""
+    from tensorflowonspark_tpu_torch.compute.checkpoint import save_checkpoint
+
+    ckpt = save_checkpoint(os.path.join(tmp, "ckpt"),
+                           {"params": {n: p.detach() for n, p in model.named_parameters()}})
+    for name, data in (("prompts", prompts), ("score", rows)):
+        with open(os.path.join(tmp, f"{name}.jsonl"), "w") as f:
+            f.writelines(json.dumps({"tokens": r}) + "\n" for r in data)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    base = [sys.executable, "-m", "tensorflowonspark_tpu_torch.tools.generate_text",
+            "--checkpoint", ckpt, "--model", model_flag,
+            "--config-overrides", cli_overrides(cfg, preset), "--batch-size", str(len(prompts)),
+            "--device", device.type]
+    jobs = {"decode": ["--prompts", os.path.join(tmp, "prompts.jsonl"), "--max-new-tokens",
+                       str(new), "--output", os.path.join(tmp, "decode.out")],
+            "score": ["--prompts", os.path.join(tmp, "score.jsonl"), "--score",
+                      "--output", os.path.join(tmp, "score.out")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(base + v, cwd=root, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True) for k, v in jobs.items()}
+    return {"procs": procs, "t0": t0}
+
+
+def cli_result(cli, tmp, completions, logprobs) -> dict:
+    """Wait for the CLI's processes of ``run_cli`` and compare their output
+    with the in-process completions and logprobs."""
+    procs = cli["procs"]
+    try:
+        outs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {"seconds": time.perf_counter() - cli["t0"],
+           "returncodes": {k: p.returncode for k, p in procs.items()}}
+    if any(p.returncode != 0 for p in procs.values()):
+        res["output"] = {k: v[-3000:] for k, v in outs.items()}
+        return res
+    with open(os.path.join(tmp, "decode.out")) as f:
+        got = [json.loads(x)["tokens"] for x in f]
+    with open(os.path.join(tmp, "score.out")) as f:
+        got_lp = [json.loads(x)["logprobs"] for x in f]
+    res["completion_mismatches"] = sum(g != w for g, w in zip(got, completions)) + abs(
+        len(got) - len(completions))
+    res["max_abs_logprob"] = float(np.abs(np.array(got_lp) - np.array(logprobs)).max())
+    return res
+
+
+def phase_decode(fa, layers=16, rehearse=None, seed=0):
+    """KV-cache decode, sampling's greedy path and scoring on the card (see
+    the module docstring, phase 10); raises SystemExit when a check fails.
+    ``seed`` makes the weights and the data; ``layers`` cuts the depth
+    (chip_faults.py); with ``rehearse={"device":
+    "cpu", "tiny": True, "sizes": {...}}`` it runs at a tiny size on the
+    CPU. Returns every kernel's launches in the scoring call."""
+    from tensorflowonspark_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        decode_step,
+        generate,
+        init_cache,
+        prefill,
+    )
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.tools import generate_text
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**DECODE, **rehearse.get("sizes", {})}
+    if rehearse.get("tiny"):
+        preset, model_flag = LlamaConfig.tiny(dtype=torch.bfloat16), "tiny"
+        cfg = dataclasses.replace(preset, remat=False, num_layers=layers)
+    else:
+        preset, model_flag = LlamaConfig.llama_1b(), "1b"
+        cfg = dataclasses.replace(preset, remat=False, num_layers=layers)
+    t_phase = time.perf_counter()
+    model = Llama(cfg, device=device, seed=seed).to(cfg.dtype)  # weights cast once to bf16
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    b, width, new = c["batch"], c["width"], c["new"]
+    err, ok = {}, {}
+    tol = {**DECODE_TOL, "score_launches_per_call": cfg.num_layers if cuda else 0}
+
+    def sync_():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (attn) the cached attention keeps fp32 logits
+    att, logit_std = decode_attention_check(cfg, device, c["attn_scale"], seed=5 + seed)
+    err["attention"] = {**att, "logit_std": logit_std}
+    ok["attention"] = all(att[k] <= v for k, v in tol["attention"].items())
+
+    # (a) mixed-length greedy decode (decode_batches -> generate) against a
+    # teacher-forced forward
+    lengths = rng.integers(c["min_len"], width + 1, b)
+    lengths[0], lengths[-1] = width, c["min_len"]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    prompt = torch.zeros(b, width, dtype=torch.long)  # right-padded as decode_batches pads
+    for i, row in enumerate(prompts):
+        prompt[i, :len(row)] = torch.tensor(row)
+    prompt = prompt.to(device)
+    t0 = time.perf_counter()
+    completions, _ = generate_text.decode_batches(model, prompts, batch_size=b, width=width,
+                                                  max_new_tokens=new)
+    gen_s = time.perf_counter() - t0
+    toks = torch.tensor(completions, device=device)
+    cap_toks, cap_logits = greedy_capture(model, prompt, new, torch.from_numpy(lengths).to(device))
+    forced = torch.zeros(b, width + new, dtype=torch.long, device=device)
+    for i, n in enumerate(lengths):
+        forced[i, :n] = prompt[i, :n]
+        forced[i, n:n + new] = toks[i]
+    with torch.no_grad():
+        full = model(forced)
+    at = torch.from_numpy(lengths).to(device)[:, None] - 1 + torch.arange(new, device=device)
+    ref = full[torch.arange(b, device=device)[:, None], at]
+    del full
+    confident = top2_gap(ref) > tol["logits"]
+    err["mixed"] = {
+        "lengths": lengths.tolist(), "generate_s": gen_s,
+        "max_abs_logits": (cap_logits - ref).abs().max().item(),
+        "capture_equals_generate": bool(torch.equal(cap_toks, toks)),
+        "confident_tokens": int(confident.sum()), "tokens": b * new,
+        "confident_mismatches": int(((ref.argmax(-1) != toks) & confident).sum()),
+        "finite": bool(torch.isfinite(cap_logits).all()),
+        "shape": list(toks.shape),
+    }
+    m = err["mixed"]
+    ok["mixed"] = (m["capture_equals_generate"] and m["finite"] and m["shape"] == [b, new]
+                   and m["max_abs_logits"] <= tol["logits"] and m["confident_mismatches"] == 0)
+    a_logits = cap_logits
+    del ref, cap_logits
+
+    # (b) timing at batch 1 and batch 8
+    for tb in ((1, b) if cuda else ()):
+        p = torch.from_numpy(rng.integers(0, cfg.vocab_size, (tb, c["time_prompt"]))).to(device)
+        generate(model, p, 8)  # warm-up
+        caches = [init_cache(cfg, tb, device) for _ in range(3)]
+        sync_()
+        t0 = time.perf_counter()
+        for cache in caches:
+            with torch.no_grad():
+                logits, pos = prefill(model, cache, p)
+        sync_()
+        prefill_ms = (time.perf_counter() - t0) * 1e3 / len(caches)
+        cache, tok = caches[-1], logits.argmax(-1)
+
+        def step():
+            nonlocal tok, pos
+            with torch.no_grad():
+                tok = decode_step(model, cache, tok, pos).argmax(-1)
+            pos = pos + 1
+
+        n = c["time_steps"]
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        issue_ms = (time.perf_counter() - t0) * 1e3 / n
+        sync_()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        prof = profile_steps(step, n=2, model=f"llama_decode_b{tb}")
+        del caches, cache
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        generate(model, p, new)
+        sync_()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        slots = cfg.kv_cache_len or cfg.max_seq_len
+        kv_read = 2 * cfg.num_layers * tb * slots * cfg.num_kv_heads * cfg.head_dim * 2
+        # a step reads every weight once, but of the embedding table only its B rows
+        step_weights = (weight_bytes - model.embed.numel() * model.embed.element_size()
+                        + tb * cfg.hidden_size * model.embed.element_size())
+        bound_ms = (step_weights + kv_read) / H100_BYTES_PER_S * 1e3
+        emit({"phase": "decode", "part": "timing", "batch": tb, "prompt": c["time_prompt"],
+              "new_tokens": new, "prefill_ms": prefill_ms, "step_ms": step_ms,
+              "host_issue_ms_per_step": issue_ms, "decode_tokens_per_s": tb / step_ms * 1e3,
+              "generate_ms": total_ms, "generate_tokens_per_s": tb * new / total_ms * 1e3,
+              "bytes_per_step": step_weights + kv_read, "weight_bytes_per_step": step_weights,
+              "kv_read_bytes": kv_read, "bound_ms": bound_ms, "share_of_bound": bound_ms / step_ms,
+              "profile_wall_ms_per_step": prof["wall_ms_per_step"],
+              "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+              "device_idle_share": prof["device_idle_share"],
+              "aten_calls_per_step": prof["aten_calls_per_step"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "nvidia_smi": nvidia_smi()})
+
+    # (g), started here and read at the end: the CLI as two subprocesses on
+    # this device over a port checkpoint of these weights
+    sw = c["score_width"]
+    rows = rng.integers(0, cfg.vocab_size, (b, sw)).tolist()
+    tmp = tempfile.mkdtemp(prefix="tfos_decode_")
+    try:
+        cli = run_cli(model, prompts, rows, cfg, preset, model_flag, device, tmp, new)
+
+        # (c) eos: a token rows of (a) share, in a batch of those rows
+        ok["eos"] = eos_check(model, prompt, lengths, toks, new, err)
+
+        # (d) int8 KV cache on (a)'s tokens
+        steps8 = c["int8_steps"]
+        cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        retarget(model, cfg8)
+        _, logits8 = greedy_capture(model, prompt, steps8, torch.from_numpy(lengths).to(device),
+                                    force=toks[:, :steps8])
+        retarget(model, cfg)
+        err["int8"] = {
+            "steps": steps8,
+            "max_abs_logits": (logits8 - a_logits[:, :steps8]).abs().max().item(),
+            "cache_bytes_int8": cache_bytes(init_cache(cfg8, b, device)),
+            "cache_bytes_bf16": cache_bytes(init_cache(cfg, b, device)),
+            # the codes widened to bf16 per step (eager torch does not fuse it)
+            "widened_bytes_per_step": 2 * cfg.num_layers * b
+            * (cfg.kv_cache_len or cfg.max_seq_len) * cfg.num_kv_heads * cfg.head_dim * 2,
+        }
+        ok["int8"] = err["int8"]["max_abs_logits"] <= tol["int8"]
+        del logits8, a_logits
+
+        # (e) rolling cache against the dense windowed cache, on its tokens
+        cfg_w = dataclasses.replace(cfg, sliding_window=c["roll_window"])
+        cfg_r = dataclasses.replace(cfg_w, kv_cache_len=c["roll_cache"])
+        rp = torch.from_numpy(rng.integers(0, cfg.vocab_size, (c["roll_batch"], c["roll_prompt"])))
+        rp = rp.to(device)
+        retarget(model, cfg_w)
+        dtoks, dlogits = greedy_capture(model, rp, c["roll_new"])
+        retarget(model, cfg_r)
+        _, rlogits = greedy_capture(model, rp, c["roll_new"], force=dtoks)
+        retarget(model, cfg)
+        sure = top2_gap(dlogits) > tol["rolling"]
+        err["rolling"] = {
+            "window": c["roll_window"], "cache_len": c["roll_cache"],
+            "last_position": c["roll_prompt"] + c["roll_new"] - 1,
+            "max_abs_logits": (rlogits - dlogits).abs().max().item(),
+            "confident_tokens": int(sure.sum()), "tokens": int(sure.numel()),
+            "confident_mismatches": int(((rlogits.argmax(-1) != dtoks) & sure).sum()),
+        }
+        r = err["rolling"]
+        ok["rolling"] = (r["max_abs_logits"] <= tol["rolling"] and r["confident_mismatches"] == 0
+                         and r["last_position"] >= c["roll_cache"])
+        del dlogits, rlogits
+
+        # (f) scoring through B1, against the plain attention
+        score_rows = generate_text.build_score_fn(model, width=sw, bsz=b)
+        fa.reset_launches()
+        bn_kernels.reset_launches()
+        lp = score_rows(rows)
+        sync_()
+        launches = {**fa.LAUNCHES, **bn_kernels.LAUNCHES}
+        retarget(model, dataclasses.replace(cfg, attention_impl="xla"))
+        lp_plain = generate_text.build_score_fn(model, width=sw, bsz=b)(rows)
+        retarget(model, cfg)
+        err["score"] = {"width": sw, "launches": launches,
+                        "max_abs_logprob": float(np.abs(np.array(lp) - np.array(lp_plain)).max())}
+        ok["score"] = (err["score"]["max_abs_logprob"] <= tol["score"]
+                       and launches == {"fwd": tol["score_launches_per_call"], "dq": 0, "dkv": 0,
+                                        "pair": 0, "cross": 0})
+
+        # (g) read: completions against decode_batches in (a), logprobs against (f)
+        err["cli"] = cli_result(cli, tmp, completions, lp)
+        ok["cli"] = (err["cli"].get("completion_mismatches") == 0
+                     and err["cli"].get("max_abs_logprob", math.inf) <= tol["cli_score"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    good = all(ok.values())
+    emit({"phase": "decode", "case": "decode_checks", "seed": seed, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "batch": b, "width": width, "new_tokens": new,
+          "weight_bytes": weight_bytes, "wall_s": time.perf_counter() - t_phase,
+          "checks": ok, "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("decode phase failed: " + ", ".join(k for k, v in ok.items() if not v))
+    return launches
+
+
+def decode_seeds(fa, seeds: list[int]) -> int:
+    """Phase decode alone at each of ``seeds`` (weights and data), to read
+    the spread of its checks against ``DECODE_TOL``: every seed's check
+    line is printed; non-zero if any seed failed."""
+    failed = []
+    for seed in seeds:
+        try:
+            phase_decode(fa, seed=seed)
+        except SystemExit:
+            failed.append(seed)
+        torch.cuda.empty_cache()
+    emit({"phase": "decode", "seeds": seeds, "failed": failed})
+    return 1 if failed else 0
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1946,6 +2416,8 @@ def main() -> int:
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 
     phase_device(_build)
+    if argv[:1] == ["--decode-seeds"]:
+        return decode_seeds(fa, [int(x) for x in argv[1:]])
     rows = phase_kernels(fa)
     launches, train_step_ms, train = phase_train(fa)
     torch.cuda.empty_cache()
@@ -1961,16 +2433,19 @@ def main() -> int:
     t0 = time.perf_counter()
     elastic_flash, elastic_bn = phase_elastic()
     emit({"phase": "elastic", "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    score = phase_decode(fa)
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
          "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
-         **rows[kind]}
+         "score_launches": score[kind], **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
-         "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind], **bn_rows[kind]}
+         "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind],
+         "score_launches": score[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)
@@ -1982,4 +2457,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,12 +12,16 @@ with ``restore_latest``, saves every ``--save-every`` steps with
 ``CheckpointManager`` (sharded: every node writes its shards) and at the
 end with ``chief_final_save``, and prints the same per-node line as the
 JAX example: step ms, tokens/s and MFU against ``--peak-tflops``
-(default: the H100's dense bf16 peak).
+(default: the H100's dense bf16 peak). With ``--generate N`` the chief then
+decodes N tokens after a seeded (2, 8) prompt with the trained weights
+(``models.llama.generate``, KV-cache decode) and prints the same line as the
+JAX example.
 
 Same flags and defaults as the JAX example, except ``--peak-tflops``. Not
 ported yet, each raising ``NotImplementedError``: ``--sp`` above 1
-(sequence parallel, ROADMAP A10), ``--generate`` (KV-cache decode, A9),
-``--lora-rank`` and ``--quantize-decode`` (A10), ``--packed`` (A12).
+(sequence parallel, ROADMAP A10), ``--generate`` on a mesh of more than one
+rank (mesh decode, A9), ``--lora-rank`` and ``--quantize-decode`` (A10),
+``--packed`` (A12).
 
 Usage::
 
@@ -74,10 +78,11 @@ def _config(name: str, seq: int):
     )
 
 
-def _refuse_unported(args) -> None:
+def _refuse_unported(args, world: int = 1) -> None:
     refused = [
         (args.sp > 1, "--sp above 1 (sequence parallel)", "A10"),
-        (bool(args.generate), "--generate (KV-cache decode)", "A9"),
+        (bool(args.generate) and world > 1, "--generate on a mesh of more than one rank "
+         "(mesh decode)", "A9"),
         (bool(args.lora_rank), "--lora-rank", "A10"),
         (args.quantize_decode, "--quantize-decode", "A10"),
         (args.packed, "--packed (data/packing.py)", "A12"),
@@ -109,7 +114,8 @@ def main_fun(args, ctx):
         llama_param_shardings,
     )
 
-    _refuse_unported(args)
+    mesh = ctx.mesh({"data": args.dp, "fsdp": args.fsdp, "model": args.tp, "seq": args.sp})
+    _refuse_unported(args, mesh.size())
     device = resolve_device(ctx.device)
     cfg = _config(args.model, args.seq)
     if args.remat != "full":
@@ -117,7 +123,6 @@ def main_fun(args, ctx):
     if args.attention != "auto":
         cfg = dataclasses.replace(cfg, attention_impl=args.attention)
     model = Llama(cfg, device=device, seed=0)
-    mesh = ctx.mesh({"data": args.dp, "fsdp": args.fsdp, "model": args.tp, "seq": args.sp})
     if ctx.executor_id == 0:
         print(f"device: {device}, mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
 
@@ -214,6 +219,40 @@ def main_fun(args, ctx):
         chief_final_save(ckpt, state, state.step, ctx.is_chief)
         if ctx.is_chief:
             print(f"checkpointed step {state.step} to {args.model_dir}")
+    if args.generate and ctx.is_chief:
+        _generate(args, cfg, state, device)
+
+
+def _generate(args, cfg, state, device):
+    """Decode ``--generate`` tokens after a seeded (2, 8) prompt with the
+    trained params (a mesh of one rank: each DTensor is its whole tensor)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models.llama import Llama, generate
+
+    model = Llama(cfg, device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            src = state.params[name]
+            p.copy_(src.full_tensor() if hasattr(src, "full_tensor") else src)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 8))
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.time()
+    out = generate(model, prompt, max_new_tokens=args.generate, temperature=args.temperature,
+                   top_k=args.top_k, top_p=args.top_p, eos_id=args.eos_id, generator=gen)
+    out = out.cpu().numpy()  # waits for the device
+    dt = time.time() - t0
+    if args.eos_id is None:
+        n_generated = float(args.generate)
+    else:
+        # tokens up to and including each row's first EOS; the eos-filled
+        # tail was never decoded (early stop)
+        hit = out == args.eos_id
+        n_generated = float(np.where(hit.any(axis=1), hit.argmax(axis=1) + 1,
+                                     out.shape[1]).mean())
+    print(f"generated {n_generated:.1f} tokens/seq (KV-cache decode) in {dt:.1f}s: "
+          f"{out[0][:10].tolist()}")
 
 
 def parse_args(argv=None):
@@ -266,7 +305,7 @@ def parse_args(argv=None):
     p.add_argument("--save-every", type=int, default=0,
                    help="mid-training checkpoint interval in steps (0: only at end)")
     p.add_argument("--generate", type=int, default=0,
-                   help="after training, decode N tokens (not ported: A9)")
+                   help="after training, decode N tokens (KV-cache decode)")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--eos-id", type=int, default=None)
     p.add_argument("--top-k", type=int, default=None)

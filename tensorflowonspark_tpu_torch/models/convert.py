@@ -17,6 +17,13 @@ Dense kernels are stored ``(in, out)`` in flax and ``(out, in)`` in the
 port, so they are transposed, as is Llama's ``(hidden, vocab)`` output
 head; conv kernels go HWIO ↔ OIHW. Any leaf that maps to nothing raises;
 int8 (``QuantTensor``) and LoRA kernels raise ``NotImplementedError``.
+
+``cache_from_jax``/``cache_to_jax`` carry a Llama decode cache (the flax
+``cache`` collection, ``layer{i}/attn/{k,v,k_scale,v_scale,seg,pos,idx}``)
+to and from the port's list of per-layer dicts
+(:func:`models.llama.init_cache`); the K/V planes go ``(B, C, kv_heads,
+D)`` ↔ ``(B, kv_heads, C, D)`` and the int8 scales ``(B, C, kv_heads)`` ↔
+``(B, kv_heads, C)``.
 """
 
 from __future__ import annotations
@@ -227,4 +234,52 @@ def params_to_jax(model) -> dict:
         parts, transposed = _jax_path(name)
         arr = _host(t)
         _nest(tree, parts, _to_flax(arr) if transposed else arr)
+    return tree
+
+
+_CACHE_LEAVES = ("k", "v", "k_scale", "v_scale", "seg", "pos", "idx")
+_CACHE_HEADS_MOVE = {"k": (0, 2, 1, 3), "v": (0, 2, 1, 3), "k_scale": (0, 2, 1),
+                     "v_scale": (0, 2, 1)}
+
+
+def _cache_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: through fp32, exactly
+        return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def cache_from_jax(tree) -> list[dict[str, torch.Tensor]]:
+    """flax ``cache`` collection (nested dicts of arrays) -> the port's
+    per-layer cache dicts, on the CPU, in the same dtypes."""
+    layers: dict[int, dict] = {}
+    for path, leaf in _flatten(tree):
+        m = _LAYER.match(path[0])
+        if not (m and len(path) == 3 and path[1] == "attn" and path[2] in _CACHE_LEAVES):
+            raise KeyError(f"no port cache leaf for flax cache leaf {'/'.join(path)}")
+        t = _cache_tensor(leaf)
+        perm = _CACHE_HEADS_MOVE.get(path[2])
+        layers.setdefault(int(m.group(1)), {})[path[2]] = (
+            t if perm is None else t.permute(*perm).contiguous())
+    if sorted(layers) != list(range(len(layers))):
+        raise KeyError(f"cache layers {sorted(layers)} are not 0..n-1")
+    return [layers[i] for i in range(len(layers))]
+
+
+def cache_to_jax(cache) -> dict:
+    """The port's per-layer cache dicts -> the flax ``cache`` collection's
+    nested dict of numpy (bf16 leaves as fp32 arrays of the same values,
+    as ``params_to_jax`` gives fp32)."""
+    tree: dict = {}
+    for i, layer in enumerate(cache):
+        for name, t in layer.items():
+            if name not in _CACHE_LEAVES:
+                raise KeyError(f"no flax cache leaf for port cache leaf {name}")
+            perm = _CACHE_HEADS_MOVE.get(name)
+            t = t.detach().cpu()
+            if perm is not None:
+                t = t.permute(*perm)
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            _nest(tree, [f"layer{i}", "attn", name], t.contiguous().numpy())
     return tree

@@ -1,4 +1,4 @@
-"""Llama-family decoder, training path (port of
+"""Llama-family decoder: training, KV-cache decode and sampling (port of
 :mod:`tensorflowonspark_tpu.models.llama`).
 
 Parameters are stored in fp32 and cast to ``cfg.dtype`` where they are
@@ -23,9 +23,22 @@ projections), as JAX's ``dots_with_no_batch_dims_saveable`` keeps the dot
 products without batch dims; attention's batched products are recomputed,
 and with them the flash forward.
 
+Decode (``forward(..., decode=True, cache=...)``) runs against a KV cache
+the caller owns: :func:`init_cache` allocates it once, one dict of tensors
+per layer named as the flax cache variables (``k``, ``v``, ``k_scale``,
+``v_scale``, ``seg``, ``pos``, ``idx``), and each call updates it in place.
+Attention against the cache is plain torch products, as the reference's
+einsums are: decode reads the weights and the cache once a step. The K/V
+planes are laid out ``(B, kv_heads, C, D)`` (flax: ``(B, C, kv_heads,
+D)``) so that each head's cache is one contiguous matrix the batched
+products read in place; ``models.convert.cache_from_jax`` /
+``cache_to_jax`` move between the two. :func:`generate` is the
+autoregressive loop over :func:`prefill` and :func:`decode_step`, and
+:func:`sample_logits` draws from a ``torch.Generator``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): KV-cache decode, MoE experts, and int8 or LoRA kernels
-(``models.convert.params_from_jax`` rejects them).
+item): decode on a device mesh (A9), MoE experts, and int8 or LoRA kernels
+(``models.convert.params_from_jax`` rejects them; A10).
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -44,7 +58,7 @@ from torch.utils.checkpoint import (
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.ops.attention import dot_product_attention
-from tensorflowonspark_tpu_torch.parallel.context import gather_fsdp, mesh_region
+from tensorflowonspark_tpu_torch.parallel.context import gather_fsdp, is_dtensor, mesh_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +96,18 @@ class LlamaConfig:
     # Qwen2-family QKV bias
     attention_bias: bool = False
     # sliding-window attention: each query sees the last `sliding_window` keys
+    # (training, prefill and cached decode, where the cache's position plane
+    # masks by RoPE-position distance)
     sliding_window: int | None = None
+    # Rolling KV cache: cache only this many slots (>= sliding_window + write
+    # width - 1) instead of max_seq_len, with slot = position % kv_cache_len.
+    # Requires sliding_window (full attention needs every position). None =
+    # dense (max_seq_len slots).
+    kv_cache_len: int | None = None
+    # KV-cache storage: "model" (= dtype, exact) or "int8" (per-token per-head
+    # max-abs quantization with fp32 scales: half the cache's device memory).
+    # Decode-side only; training has no cache.
+    kv_cache_dtype: str = "model"
 
     @property
     def head_dim(self) -> int:
@@ -167,7 +192,9 @@ class RMSNorm(nn.Module):
 def _scaled_rope_freqs(d: int, theta: float, scaling: RopeScaling | None, device=None):
     """Base (or rescaled) inverse frequencies for head dim ``d``, fp32."""
     exponent = -torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exponent)
+    # a Python base: a device tensor made from it would be a copy that
+    # waits for the stream, twice a layer
+    freqs = torch.pow(float(theta), exponent)
     if scaling is None:
         return freqs
     if scaling.kind == "linear":
@@ -227,7 +254,10 @@ class Attention(nn.Module):
         self.v_proj = dense(cfg.num_kv_heads * hd, ab)
         self.o_proj = Dense(cfg.num_heads * hd, cfg.hidden_size, cfg.dtype, device=device)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, cache=None, padded=False):
+        """``cache`` (this layer's dict of :func:`init_cache`) runs the
+        decode branch: the new K/V are written into it and the queries
+        attend the cache."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, cfg.num_heads, cfg.head_dim)
@@ -235,11 +265,200 @@ class Attention(nn.Module):
         v = self.v_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        out = dot_product_attention(
-            q, k, v.contiguous(), causal=True, segment_ids=segment_ids,
-            impl=cfg.attention_impl, window=cfg.sliding_window,
-        )
+        if cache is not None:
+            if segment_ids is not None and padded:
+                raise ValueError(
+                    "segment_ids with padded=True is unsupported: padded decode writes each "
+                    "row's cache at its own positions (mixed-length unpadded prompts), which "
+                    "conflicts with packed rows' global slot indexing"
+                )
+            out = cached_attention(cfg, q, k, v, positions, cache, padded, segment_ids)
+        else:
+            out = dot_product_attention(
+                q, k, v.contiguous(), causal=True, segment_ids=segment_ids,
+                impl=cfg.attention_impl, window=cfg.sliding_window,
+            )
         return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+
+
+def _cache_len(cfg: LlamaConfig) -> tuple[int, bool]:
+    """(slots, rolling) of a layer's cache."""
+    c = cfg.kv_cache_len or cfg.max_seq_len
+    return c, c < cfg.max_seq_len
+
+
+def init_cache(cfg: LlamaConfig, batch: int, device=None) -> list[dict[str, torch.Tensor]]:
+    """A fresh decode cache for ``batch`` rows: one dict per layer, each
+    tensor batch-first, allocated once and updated in place by every
+    decode call.
+
+    ``k``/``v`` ``(B, kv_heads, C, D)`` in ``cfg.dtype`` (int8 with
+    ``kv_cache_dtype='int8'``, then also fp32 ``k_scale``/``v_scale``
+    ``(B, kv_heads, C)``); ``seg`` ``(B, C)`` int32, each slot's segment id;
+    ``pos`` ``(B, C)`` int32, each slot's RoPE position (only with a
+    sliding window); ``idx``, the scalar running write index. ``C`` is
+    ``kv_cache_len`` or ``max_seq_len``. The one rule of the reference's
+    initial values: every leaf is zero except ``pos`` under a rolling
+    cache, which is -1 ("never written"), so that a stale slot cannot pass
+    for position 0.
+    """
+    device = resolve_device(device)
+    c, rolling = _cache_len(cfg)
+    int8_kv = cfg.kv_cache_dtype == "int8"
+    kv_shape = (batch, cfg.num_kv_heads, c, cfg.head_dim)
+    kv_dtype = torch.int8 if int8_kv else cfg.dtype
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {
+            "k": torch.zeros(kv_shape, dtype=kv_dtype, device=device),
+            "v": torch.zeros(kv_shape, dtype=kv_dtype, device=device),
+        }
+        if int8_kv:
+            layer["k_scale"] = torch.zeros(kv_shape[:3], device=device)
+            layer["v_scale"] = torch.zeros(kv_shape[:3], device=device)
+        layer["seg"] = torch.zeros(batch, c, dtype=torch.int32, device=device)
+        if cfg.sliding_window is not None:
+            layer["pos"] = torch.full((batch, c), -1 if rolling else 0, dtype=torch.int32,
+                                      device=device)
+        layer["idx"] = torch.zeros((), dtype=torch.int32, device=device)
+        layers.append(layer)
+    return layers
+
+
+def _kv_store(x, int8_kv: bool, dtype):
+    """What lands in the cache for new K/V rows (B, S, kv_heads, D): the
+    model-dtype values, or (int8 codes, fp32 scale (B, S, kv_heads)) with
+    symmetric per-token per-head max-abs rounding."""
+    if not int8_kv:
+        return x.to(dtype), None
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-8) * (1.0 / 127.0)
+    return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
+
+
+def qk_logits(q, k):
+    """(N, M, D) x (N, C, D) -> fp32 (N, M, C) products. On CUDA bf16/fp16
+    operands accumulate into an fp32 output directly, so neither the logits
+    are rounded to bf16 nor is the cache copied to fp32; on the CPU (where
+    that form does not exist) the operands are widened first."""
+    if q.dtype == torch.float32:
+        return torch.bmm(q, k.transpose(1, 2))
+    if q.is_cuda:
+        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+    return torch.bmm(q.float(), k.float().transpose(1, 2))
+
+
+def cached_attention(cfg: LlamaConfig, q, k, v, positions, cache, padded=False,
+                     segment_ids=None):
+    """Autoregressive attention against one layer's cache (port of the
+    reference's ``_cached_attention``); q (B, S, H, D), k/v (B, S, kv_heads,
+    D) after RoPE, ``positions`` (B, S).
+
+    With uniform rows (``padded=False``) the new K/V land at the running
+    write index ``idx``; with ``padded=True`` each row writes at its own
+    positions (right-padded mixed-length prompts, where row r's next slot
+    is its true length). Either way a token's slot is its row index, so the
+    slot mask hides both unwritten slots and the padding a padded prefill
+    writes past each row's true length, until that row's own decode tokens
+    overwrite it. ``segment_ids`` (packed rows) are stored per slot and
+    reads are masked by id equality; unpacked callers store zeros. With a
+    sliding window the ``pos`` plane masks by RoPE-position distance; a
+    rolling cache (``kv_cache_len < max_seq_len``) writes slot ``position
+    % C`` and masks by position alone. With ``kv_cache_dtype='int8'`` the K
+    scale multiplies the fp32 logits per key slot and the V scale the fp32
+    probabilities, so the codes are widened to ``cfg.dtype`` (a copy per
+    layer per call in eager torch) but never dequantized by a scale.
+
+    The products are grouped against the un-repeated cache, the logits
+    fp32 (:func:`qk_logits`), the probabilities rounded to ``cfg.dtype``
+    before the product with V, as the reference computes them.
+    """
+    b, s = q.shape[:2]
+    hk, d = cfg.num_kv_heads, cfg.head_dim
+    rep = cfg.num_heads // hk
+    c, rolling = _cache_len(cfg)
+    if rolling:
+        if cfg.sliding_window is None:
+            raise ValueError(
+                f"kv_cache_len={c} < max_seq_len needs sliding_window "
+                "(full attention reads every position)"
+            )
+        if segment_ids is not None:
+            # per-document positions collide under slot = position % C
+            raise ValueError(
+                "segment_ids (packed rows) are unsupported with a rolling kv_cache_len: "
+                "per-document positions collide under slot = position % C"
+            )
+        if c < cfg.sliding_window + s - 1:
+            # a write of s positions may not wrap onto slots that queries of
+            # the same call still attend
+            raise ValueError(
+                f"kv_cache_len={c} must be >= sliding_window ({cfg.sliding_window}) + "
+                f"write width ({s}) - 1; prefill in smaller chunks or grow the cache"
+            )
+    int8_kv = cfg.kv_cache_dtype == "int8"
+    positions = positions.long()
+    seg = (torch.zeros(b, s, dtype=torch.int32, device=q.device) if segment_ids is None
+           else segment_ids.to(torch.int32))
+    k_new, ks_new = _kv_store(k, int8_kv, cfg.dtype)
+    v_new, vs_new = _kv_store(v, int8_kv, cfg.dtype)
+    rows = torch.arange(b, device=q.device)[:, None]
+    if rolling or padded:
+        # per-row scatter; the K/V planes index as [row, :, slot] -> (B, S, kv_heads, ...)
+        slots = positions % c if rolling else positions
+        cache["k"][rows, :, slots] = k_new
+        cache["v"][rows, :, slots] = v_new
+        if int8_kv:
+            cache["k_scale"][rows, :, slots] = ks_new
+            cache["v_scale"][rows, :, slots] = vs_new
+        if rolling:
+            cache["seg"][rows, slots] = seg
+        if cfg.sliding_window is not None:
+            cache["pos"][rows, slots] = positions.to(torch.int32)
+        slot_q = positions  # unused when rolling: it masks by position alone
+    else:
+        cur = cache["idx"]
+        # the write clamps into the cache, as lax.dynamic_update_slice does
+        slots = cur.clamp(0, c - s) + torch.arange(s, device=q.device)
+        cache["k"].index_copy_(2, slots, k_new.transpose(1, 2))
+        cache["v"].index_copy_(2, slots, v_new.transpose(1, 2))
+        if int8_kv:
+            cache["k_scale"].index_copy_(2, slots, ks_new.transpose(1, 2))
+            cache["v_scale"].index_copy_(2, slots, vs_new.transpose(1, 2))
+        cache["seg"].index_copy_(1, slots, seg)
+        if cfg.sliding_window is not None:
+            cache["pos"].index_copy_(1, slots, positions.to(torch.int32))
+        slot_q = (cur + torch.arange(s, device=q.device)).expand(b, s)
+    cache["idx"].add_(s)
+
+    kc, vc = cache["k"], cache["v"]
+    if int8_kv:
+        kc, vc = kc.to(cfg.dtype), vc.to(cfg.dtype)
+    # (B, S, kv_heads, rep, D) -> one (rep*S, D) matrix per (row, kv head)
+    qg = q.view(b, s, hk, rep, d).permute(0, 2, 3, 1, 4).reshape(b * hk, rep * s, d)
+    logits = qk_logits(qg, kc.view(b * hk, c, d)).view(b, hk, rep, s, c) * d**-0.5
+    if int8_kv:
+        logits = logits * cache["k_scale"][:, :, None, None, :]
+    seg_eq = cache["seg"][:, None, None, None, :] == seg[:, None, None, :, None]
+    if rolling:
+        # a slot is attended iff its recorded position is real (>= 0), causal
+        # and inside the window; stale slots hold positions <= q - C <= q - W
+        kplane = cache["pos"][:, None, None, None, :]
+        qcol = positions[:, None, None, :, None]
+        mask = (kplane >= 0) & (kplane <= qcol) & (kplane > qcol - cfg.sliding_window)
+    else:
+        key_pos = torch.arange(c, device=q.device)
+        mask = key_pos[None, None, None, None, :] <= slot_q[:, None, None, :, None]
+        if cfg.sliding_window is not None:
+            mask = mask & (cache["pos"][:, None, None, None, :]
+                           > positions[:, None, None, :, None] - cfg.sliding_window)
+    logits = torch.where(mask & seg_eq, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    if int8_kv:
+        probs = probs * cache["v_scale"][:, :, None, None, :]
+    probs = probs.to(cfg.dtype)
+    out = torch.bmm(probs.view(b * hk, rep * s, c), vc.view(b * hk, c, d))
+    return out.view(b, hk, rep, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, cfg.num_heads, d)
 
 
 class MLP(nn.Module):
@@ -262,8 +481,8 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, positions, segment_ids=None):
-        h = x + self.attn(self.attn_norm(x), positions, segment_ids)
+    def forward(self, x, positions, segment_ids=None, cache=None, padded=False):
+        h = x + self.attn(self.attn_norm(x), positions, segment_ids, cache, padded)
         return h + self.mlp(self.mlp_norm(h))
 
 
@@ -344,16 +563,33 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens, positions=None, segment_ids=None, decode=False, return_hidden=False):
+    def forward(self, tokens, positions=None, segment_ids=None, decode=False, return_hidden=False,
+                padded=False, cache=None):
         """``return_hidden=True`` returns ``(hidden, lm_head)`` — the final
         normed hidden states (B, S, H) and the head weight (vocab, H) — so
-        a loss can project the vocabulary in chunks."""
-        if decode:
-            raise NotImplementedError("KV-cache decode is not ported yet: ROADMAP A9")
-        with mesh_region(tokens):
-            return self._forward(tokens, positions, segment_ids, return_hidden)
+        a loss can project the vocabulary in chunks.
 
-    def _forward(self, tokens, positions, segment_ids, return_hidden):
+        ``decode=True`` runs against ``cache`` (:func:`init_cache`), which
+        it updates in place; ``positions`` are then the tokens' absolute
+        positions. ``padded=True`` (decode only) makes each row write the
+        cache at its own positions (right-padded mixed-length prompts).
+        Packed ``segment_ids`` work with decode too, except with
+        ``padded``."""
+        if decode:
+            if cache is None:
+                raise ValueError("decode=True needs a cache: pass cache=init_cache(cfg, batch)")
+            if len(cache) != self.cfg.num_layers:
+                raise ValueError(f"a cache of {len(cache)} layers for a model of "
+                                 f"{self.cfg.num_layers}")
+            if is_dtensor(self.embed):  # the params are placed together
+                raise NotImplementedError(
+                    "KV-cache decode on a device mesh is not ported yet: ROADMAP A9"
+                )
+        with mesh_region(tokens):
+            return self._forward(tokens, positions, segment_ids, return_hidden,
+                                 cache if decode else None, padded)
+
+    def _forward(self, tokens, positions, segment_ids, return_hidden, cache, padded):
         cfg = self.cfg
         if positions is None:
             if segment_ids is None:
@@ -362,8 +598,10 @@ class Llama(nn.Module):
                 positions = packed_positions(segment_ids)
         x = F.embedding(tokens, gather_fsdp(self.embed)).to(cfg.dtype)
         context_fn = _dots_saved if cfg.remat_policy == "dots" else None
-        for block in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
+        for i, block in enumerate(self.layers):
+            if cache is not None:  # decode stays out of remat
+                x = block(x, positions, segment_ids, cache[i], padded)
+            elif cfg.remat and torch.is_grad_enabled():
                 kw = {} if context_fn is None else {"context_fn": context_fn}
                 x = checkpoint(block, x, positions, segment_ids, use_reentrant=False, **kw)
             else:
@@ -373,6 +611,165 @@ class Llama(nn.Module):
         if return_hidden:
             return x, head
         return F.linear(x, head.to(cfg.dtype)).float()
+
+
+def prefill(model: Llama, cache, prompt, lengths=None):
+    """The prompt (B, S) through ``model`` into a fresh ``cache``: returns
+    each row's next-token logits (B, vocab) fp32 and the position of its
+    next token (B,). With ``lengths`` (right-padded rows) each row's logits
+    come from its true last position and it continues from its length."""
+    b, s = prompt.shape
+    positions = torch.arange(s, device=prompt.device).expand(b, s)
+    logits = model(prompt, positions=positions, decode=True, padded=lengths is not None,
+                   cache=cache)
+    if lengths is None:
+        return logits[:, -1], torch.full((b,), s, dtype=torch.long, device=prompt.device)
+    last = logits[torch.arange(b, device=prompt.device), lengths - 1]
+    return last, lengths
+
+
+def decode_step(model: Llama, cache, tok, pos, padded=False):
+    """One token per row (B,) at positions ``pos`` (B,) through ``model``
+    against ``cache``: the next-token logits (B, vocab) fp32."""
+    return model(tok[:, None], positions=pos[:, None], decode=True, padded=padded,
+                 cache=cache)[:, -1]
+
+
+def _truncate(logits, top_k=None, top_p=None, min_p=None):
+    """Temperature-scaled logits with the tokens ``top_k``/``top_p``/
+    ``min_p`` drop set to -inf (top-k first; the three intersect)."""
+    vocab = logits.shape[-1]
+    k_active = top_k is not None and top_k < vocab
+    p_active = top_p is not None and top_p < 1.0
+    if k_active:
+        sorted_desc = torch.topk(logits, top_k, dim=-1).values
+        logits = logits.masked_fill(logits < sorted_desc[..., -1:], -math.inf)
+    elif p_active:
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    if p_active:
+        cum = torch.softmax(sorted_desc, dim=-1).cumsum(-1)
+        # the last kept token: everything before cumulative mass reaches
+        # top_p, and at least the most likely token (an index past the end
+        # keeps all, as the reference's clamping gather does)
+        cutoff = (cum < top_p).sum(-1, keepdim=True).clamp(max=sorted_desc.shape[-1] - 1)
+        logits = logits.masked_fill(logits < sorted_desc.gather(-1, cutoff), -math.inf)
+    if min_p is not None and min_p > 0.0:
+        # prob >= min_p * prob_max  <=>  logit >= max + log(min_p)
+        log_min_p = torch.log(torch.tensor(min_p, dtype=torch.float32)).item()  # fp32, on the host
+        floor = logits.amax(-1, keepdim=True) + log_min_p
+        logits = logits.masked_fill(logits < floor, -math.inf)
+    return logits
+
+
+def sample_logits(logits, generator, temperature, top_k=None, top_p=None, min_p=None):
+    """Next tokens (B,) from (B, vocab) logits.
+
+    ``temperature == 0`` is greedy argmax (``generator`` unused). Otherwise
+    a draw from ``softmax(logits / temperature)`` truncated to the ``top_k``
+    most likely tokens and/or the smallest nucleus of mass ``top_p`` (top-k
+    first) and/or the tokens of probability at least ``min_p`` times the
+    most likely one's, intersected. The draw is Gumbel-max on uniforms from
+    ``generator`` (never the global generator), so a seed fixes the tokens.
+    """
+    if temperature == 0.0:
+        return logits.argmax(-1)
+    logits = _truncate(logits / temperature, top_k, top_p, min_p)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return (logits - torch.log(-torch.log(u))).argmax(-1)
+
+
+@torch.no_grad()
+def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0,
+             top_k: int | None = None, top_p: float | None = None,
+             min_p: float | None = None, generator: torch.Generator | None = None,
+             eos_id: int | None = None, prompt_lengths=None, mesh=None):
+    """Autoregressive sampling with a KV cache: (B, S) -> (B, max_new_tokens).
+
+    One prefill over the prompt (:func:`prefill`), then single-token steps
+    (:func:`decode_step`) against the cache :func:`init_cache` allocated
+    once. ``temperature=0`` is greedy argmax; otherwise tokens are drawn by
+    :func:`sample_logits` from ``generator`` (a fresh one seeded 0 on the
+    model's device when None).
+
+    Mixed-length prompts: right-pad ``prompt`` and pass ``prompt_lengths``
+    (B,); each row samples its first token at its last real position and
+    decodes from its own length, overwriting its padding slots as it goes.
+    Without ``prompt_lengths`` every row's true length is S.
+
+    ``eos_id``: rows that emit it are finished and keep emitting it; the
+    loop ends once every row has finished (one host sync a step for that
+    test), and the output stays (B, max_new_tokens). Without ``eos_id`` the
+    loop takes max_new_tokens - 1 steps and never waits for the device.
+
+    Not ported yet: ``mesh`` (decode on a device mesh, ROADMAP A9). int8
+    weights (the reference's ``QuantTensor``) cannot reach a port model:
+    ``models.convert.params_from_jax`` and the decode tools refuse them
+    (ROADMAP A10).
+    """
+    cfg = model.cfg
+    device = model.device
+    prompt = torch.as_tensor(prompt, device=device)
+    b, s = prompt.shape
+    if s + max_new_tokens > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds max_seq_len "
+            f"({cfg.max_seq_len}); the KV cache cannot hold it"
+        )
+    if top_k is not None and top_k < 1:
+        raise ValueError("top_k must be >= 1")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError("top_p must be in (0, 1]")
+    if min_p is not None and not (0.0 <= min_p <= 1.0):
+        raise ValueError("min_p must be in [0, 1]")
+    if temperature == 0.0 and (top_k is not None or top_p is not None or min_p is not None):
+        raise ValueError(
+            "top_k/top_p/min_p require temperature > 0 (temperature=0 is greedy argmax, "
+            "which would silently ignore them)"
+        )
+    if mesh is not None:
+        raise NotImplementedError("generate on a device mesh is not ported yet: ROADMAP A9")
+    lengths = None
+    if prompt_lengths is not None:
+        # host-side range check: an out-of-range length would index garbage
+        host = np.asarray(torch.as_tensor(prompt_lengths).cpu())
+        if host.shape != (b,):
+            raise ValueError(f"prompt_lengths must have shape ({b},), got {host.shape}")
+        if (host < 1).any() or (host > s).any():
+            raise ValueError(
+                f"prompt_lengths must be in [1, {s}] (the padded prompt width); "
+                f"got {host.tolist()}"
+            )
+        lengths = torch.as_tensor(host, dtype=torch.long, device=device)
+    if generator is None and temperature != 0.0:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def sample(logits):
+        return sample_logits(logits, generator, float(temperature), top_k, top_p, min_p)
+
+    padded = lengths is not None
+    cache = init_cache(cfg, b, device)
+    logits, pos = prefill(model, cache, prompt, lengths)
+    tok = sample(logits)
+    if eos_id is None:
+        toks = [tok]
+        for _ in range(max_new_tokens - 1):
+            tok = sample(decode_step(model, cache, tok, pos, padded))
+            pos = pos + 1
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+    out = torch.full((b, max_new_tokens), eos_id, dtype=torch.long, device=device)
+    out[:, 0] = tok
+    done = tok == eos_id
+    for i in range(1, max_new_tokens):
+        if bool(done.all()):
+            break
+        nxt = sample(decode_step(model, cache, tok, pos, padded))
+        pos = pos + 1
+        nxt = torch.where(done, eos_id, nxt)  # eos stays in finished rows
+        out[:, i] = nxt
+        done = done | (nxt == eos_id)
+        tok = nxt
+    return out
 
 
 def packed_loss_mask(segment_ids):

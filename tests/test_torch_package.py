@@ -63,6 +63,7 @@ def test_import_leaves_jax_out():
         "import tensorflowonspark_tpu_torch.compute.mesh, tensorflowonspark_tpu_torch.compute.layout\n"
         "import tensorflowonspark_tpu_torch.parallel, tensorflowonspark_tpu_torch.compute.checkpoint\n"
         "import tensorflowonspark_tpu_torch.feed.prefetch, tensorflowonspark_tpu_torch.cluster.context\n"
+        "import tensorflowonspark_tpu_torch.tools.generate_text\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -336,13 +337,38 @@ def test_chip_smoke_elastic_phase_rehearses_on_cpu(capsys):
     assert flash == {"fwd": 0, "dq": 0, "dkv": 0} and bn == {"pair": 0, "cross": 0}
 
 
+def test_chip_smoke_decode_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase decode runs on the CPU at a tiny size (bf16, the
+    wrappers' plain versions): every check of (attn) and (a)-(g) passes, the
+    CLI runs as two subprocesses on the CPU, and no kernel is launched."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    launches = smoke.phase_decode(fa, layers=2, rehearse={"device": "cpu", "tiny": True, "sizes": {
+        "batch": 4, "width": 16, "min_len": 4, "new": 32, "int8_steps": 4, "roll_batch": 2,
+        "roll_window": 8, "roll_cache": 16, "roll_prompt": 8, "roll_new": 12,
+        "score_width": 17}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "decode_checks" and check["ok"]
+    assert sorted(check["checks"]) == ["attention", "cli", "eos", "int8", "mixed", "rolling",
+                                       "score"]
+    assert check["err"]["mixed"]["capture_equals_generate"]
+    assert check["err"]["eos"]["steps_run"] < check["err"]["eos"]["max_steps"]
+    assert check["err"]["cli"]["completion_mismatches"] == 0
+    assert check["err"]["int8"]["cache_bytes_int8"] < check["err"]["int8"]["cache_bytes_bf16"]
+    assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
           "prefetch_no_fence", "ckpt_no_snapshot", "mesh_attention_plain",
           "mesh_restore_skips_opt_state", "mesh_bn_plain", "reshard_drops_opt_state",
           "snapshot_casts_bf16", "hydrate_stale_step", "fallback_no_rewind",
-          "heartbeat_ignores_epoch", "elastic_plain_attention"]
+          "heartbeat_ignores_epoch", "elastic_plain_attention", "decode_slot_mask_strict",
+          "rolling_pos_init_zero", "int8_drop_v_scale", "first_token_padded_position",
+          "eos_not_sticky", "qk_logits_bf16"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
