@@ -33,12 +33,19 @@ bytes after each reconfigure, and the kernels' launches), and
 ``chip_smoke.phase_decode`` at 4 layers for ``models/llama.py``'s decode
 (the cached attention against fp64 with large logits, a mixed-length
 greedy decode against a teacher-forced forward, the eos early exit, the
-int8 and rolling caches, scoring and the CLI).
+int8 and rolling caches, scoring and the CLI), and ``chip_smoke.phase_serve``
+at 4 layers for ``serving/engine.py`` (the sampler against its plain
+version, staggered traffic against generate() alone and a teacher-forced
+forward, the same traffic at other decode blocks, depths and arrival
+orders token for token, chunked prefill with the prefix cache, and the
+HTTP server in process and as a process).
 Faults that show only across ranks (a dropped ``all_reduce``, a rank's
 rows lost from an uneven split) cannot show on one card; the CPU tests
 plant those at 2 ranks (``tests/test_torch_mesh.py``). The unchanged
 copy runs every check once. The children run at once, then those of the
 decode check (a llama_1b of 4 layers each, and two CLI processes) at once,
+then those of the serve check (a llama_1b of 4 layers and a server process
+each) at once,
 then those of the elastic check (the unchanged copy's and the elastic
 faults', two or three node processes each) three at a time. Each prints its check lines; this script prints one
 JSON line per fault with the readings of the last, and exits non-zero
@@ -64,13 +71,15 @@ BN_ROUTE = Path("tensorflowonspark_tpu_torch/ops/bn_kernels.py")
 ELASTIC = Path("tensorflowonspark_tpu_torch/compute/elastic.py")
 NODE = Path("tensorflowonspark_tpu_torch/cluster/node.py")
 LLAMA = Path("tensorflowonspark_tpu_torch/models/llama.py")
+ENGINE = Path("tensorflowonspark_tpu_torch/serving/engine.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
 DECODE_CHECK = "phase_decode(fa, layers=4)"
+SERVE_CHECK = "phase_serve(fa, layers=4)"
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
           CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
-          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK}
+          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK, ENGINE: SERVE_CHECK}
 # faults whose check is not their source's
 FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
                 "elastic_plain_attention": ELASTIC_CHECK}
@@ -261,6 +270,38 @@ FAULTS = {
         "return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)",
         "return torch.bmm(q, k.transpose(1, 2)).float()",
     ),
+    # the engine copies an admitted row's cache into slot r+1
+    "admit_wrong_slot": (
+        ENGINE,
+        "leaf[row].copy_(layer_1[name][0])",
+        "leaf[(row + 1) % leaf.shape[0]].copy_(layer_1[name][0])",
+    ),
+    # slot 0's position is not advanced by a decode step
+    "decode_row0_pos_frozen": (
+        ENGINE,
+        "st.pos = torch.clamp(st.pos + 1, max=max_pos)",
+        "st.pos = torch.cat([st.pos[:1], torch.clamp(st.pos[1:] + 1, max=max_pos)])",
+    ),
+    # a block's rows retire only at its last step: tokens past a row's
+    # stop or budget are emitted
+    "block_surplus_emitted": (
+        ENGINE,
+        "if self._finished(p, out, t):",
+        "if self._finished(p, out, t) and j == k - 1:",
+    ),
+    # the penalties are applied after the temperature
+    "penalty_after_temperature": (
+        ENGINE,
+        "logits = logits - pens[:, :1] * counts - pens[:, 1:] * (counts > 0)",
+        "logits = logits - (pens[:, :1] * counts + pens[:, 1:] * (counts > 0))"
+        " * temps.clamp_min(1e-6)[:, None]",
+    ),
+    # the sampling counter is the engine's step count, not the position
+    "sample_counter_is_step": (
+        ENGINE,
+        "counter = st.pos + 1",
+        "counter = torch.full_like(st.pos, self.steps)",
+    ),
 }
 
 
@@ -304,7 +345,7 @@ def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Pope
 
 # checks whose children run after the others, in this order: check ->
 # (label, how many children at once)
-LATER = {DECODE_CHECK: ("decode", 7), ELASTIC_CHECK: ("elastic", 3)}
+LATER = {DECODE_CHECK: ("decode", 7), SERVE_CHECK: ("serve", 6), ELASTIC_CHECK: ("elastic", 3)}
 
 
 def jobs() -> list[tuple[list, int]]:

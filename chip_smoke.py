@@ -133,12 +133,43 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    on the card (decode and ``--score``) over a checkpoint that
    ``save_checkpoint`` wrote of those weights, against the in-process
    ``decode_batches`` and scorer.
+11. serve — the continuous-batching engine and the HTTP server on phase
+   decode's model (``LlamaConfig.llama_1b``, not cut, bf16 weights from
+   seed 0, 1024 cache slots; limits in ``SERVE_TOL``), the engine at 8
+   slots, prompt widths 128/256/512, decode_block 8, pipeline_depth 2:
+   (sampler) ``_sample_rows`` on the card against its plain version in
+   fp64 (penalties, logit_bias, top-k, top-p, min_p; tokens equal);
+   (a) 24 greedy requests (prompts 16–500, budgets 16–256, stop sequences
+   on the first three) and 8 seeded sampled ones (temperature 0.8, top_p
+   0.9, min_p on some) as streams from 8 threads at staggered times: each
+   greedy completion against generate() of its prompt alone (the first
+   three) and against a teacher-forced forward (all), by phase decode's
+   confident-token rule, logprobs within the limit; TTFT p50/p95; (b) the
+   same traffic on the same engine at decode_block 1 / depth 1
+   (``set_knobs``) in reverse arrival order, every completion token for
+   token equal; (c) chunked prefill (chunk 128) with the prefix cache: a
+   hit equals a miss exactly, chunked against bucketed by the confident
+   rule; (f) the engine's ms per step with 8 live rows beside
+   ``decode_step``'s at batch 8 under ``inference_mode``, in three
+   alternating rounds (the engine tax: the median of their ratios),
+   sync-debug warnings per block, device busy and idle over two profiled
+   blocks; (d) ``serve_model.make_server`` in process at budget 256:
+   concurrent ``/generate`` equal to the engine's, a streamed
+   ``/generate``, ``/v1/completions``, ``/score`` (width 769, 16 B1
+   launches a call, against the plain attention), ``/metrics``,
+   ``/stats``, then
+   ``--gen-engine fixed`` against ``decode_batches``; (e) ``python -m
+   tensorflowonspark_tpu_torch.tools.serve_model`` as a process on the
+   card over a ``save_checkpoint`` of the weights: one ``/generate`` and
+   one ``/score`` against the in-process results, then stopped. Peak
+   device memory, the phase's ``wall_s`` and each part's seconds.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
 sum over its 53 BatchNorm layers; ``mesh_launches`` counts phase mesh's
 timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
-``score_launches`` phase decode's scoring call),
+``score_launches`` phase decode's scoring call, ``serve_launches`` the
+``/score`` call of phase serve's server),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -153,6 +184,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2392,6 +2424,702 @@ def phase_decode(fa, layers=16, rehearse=None, seed=0):
     return launches
 
 
+# phase serve: sizes (a CPU rehearsal passes smaller ones)
+SERVE = dict(requests=24, sampled=8, threads=8, min_len=16, max_len=500, min_new=16, max_new=256,
+             sampled_new=(16, 64), widths=(128, 256, 512), slots=8, block=8, depth=2,
+             stagger=0.05, alone=3, alone_new=48, chunk=128, prefix=4, system=256, chunk_new=64,
+             timing_prompt=128, timing_new=41, tax_rounds=3, tax_steps=32, profile_new=200,
+             fixed_new=64, port_wait_s=600.0, budget=256)
+# Limits of phase serve, bf16 at llama_1b. "logits": a completion token must
+# equal the reference's argmax wherever the reference's top-2 gap exceeds it
+# (phase decode's limit); the references are generate() of the prompt alone
+# (the first few requests) and a teacher-forced forward without a cache over
+# prompt + completion (every request). "logprob": each returned logprob
+# against the reference's, max |diff|. "score": /score through B1 against the
+# plain attention, max |diff| (phase decode's). "sampler_logprob": the
+# sampler on the card against its plain version in fp64 on the host.
+SERVE_TOL = dict(logits=DECODE_TOL["logits"], logprob=0.3, score=DECODE_TOL["score"],
+                 sampler_logprob=1e-4)
+
+
+def stop_trim(tokens, stops):
+    """What the engine returns of a greedy decode ``tokens`` under stop
+    sequences ``stops``: cut where the first match completes, less the
+    longest sequence that matches there."""
+    for i in range(len(tokens)):
+        done = [s for s in stops if len(s) <= i + 1 and tokens[i + 1 - len(s):i + 1] == s]
+        if done:
+            return tokens[:i + 1 - max(len(s) for s in done)]
+    return tokens
+
+
+def sampler_check(device, vocab, seed=7):
+    """The engine's ``_sample_rows`` on ``device`` against its plain
+    version in fp64 on the host, on the same logits and the same noise:
+    greedy and sampled rows with frequency/presence penalties (applied
+    before the temperature), logit_bias forcing and banning, top-k, top-p
+    and min_p. Tokens must be equal; logprobs within
+    SERVE_TOL["sampler_logprob"]."""
+    from tensorflowonspark_tpu_torch.serving import engine as se
+
+    b = 8
+    g = torch.Generator().manual_seed(seed)
+    raw = torch.randn(b, vocab, generator=g) * 2.0
+    counts = torch.zeros(b, vocab)
+    counts[torch.arange(b), raw.argmax(-1)] = 3.0  # the penalties move the top token
+    counts[:, :64] += torch.randint(0, 3, (b, 64), generator=g).float()
+    temps = torch.tensor([0.0, 0.8, 0.8, 0.8, 0.0, 0.0, 0.0, 1.2])
+    kps = torch.tensor([[vocab, 1.0, 0.0], [vocab, 1.0, 0.0], [vocab, 0.9, 0.0],
+                        [vocab, 1.0, 0.05], [vocab, 1.0, 0.0], [vocab, 1.0, 0.0],
+                        [vocab, 1.0, 0.0], [40, 1.0, 0.0]])
+    pens = torch.zeros(b, 2)
+    pens[0], pens[1], pens[7] = torch.tensor([2.0, 0.5]), torch.tensor([1.5, 0.5]), \
+        torch.tensor([0.5, 0.0])
+    bids = torch.full((b, 16), -1, dtype=torch.long)
+    bvals = torch.zeros(b, 16)
+    bids[4, 0], bvals[4, 0] = 123, 100.0  # forced
+    bids[5, :2] = torch.stack([raw[5].argmax(), torch.tensor(7)])
+    bvals[5, :2] = torch.tensor([-100.0, 5.0])  # the top token banned
+    seeds, counters = torch.arange(b) + 11, torch.arange(b) + 100
+    gates = (True, True, True, True, True)
+    dev = lambda t: t.to(device)  # noqa: E731
+    tok, lp = se._sample_rows(dev(raw), dev(temps), dev(kps), dev(seeds), dev(counters),
+                              dev(pens), dev(counts), dev(bids), dev(bvals), gates=gates)
+    noise = se._gumbel(dev(seeds), dev(counters), vocab).cpu().double()
+    x = raw.double() + torch.zeros(b, vocab, dtype=torch.float64).scatter_add_(
+        1, bids.clamp_min(0), torch.where(bids >= 0, bvals, 0.0).double())
+    x = x - pens[:, :1].double() * counts - pens[:, 1:].double() * (counts > 0)
+    want = []
+    for r in range(b):
+        if temps[r] == 0:
+            want.append(int(x[r].argmax()))
+            continue
+        s = x[r] / float(temps[r])
+        keep = torch.ones(vocab, dtype=torch.bool)
+        k, p, m = (float(v) for v in kps[r])
+        desc = torch.sort(s, descending=True).values
+        if k < vocab:
+            keep &= s >= desc[int(k) - 1]
+        if p < 1.0:
+            kept = desc[:int(k)]
+            probs = torch.softmax(kept, -1)
+            n_keep = max(1, int(((torch.cumsum(probs, -1) - probs) < p).sum()))
+            keep &= s >= kept[n_keep - 1]
+        if m > 0.0:
+            keep &= s >= s.max() + math.log(m)
+        want.append(int(torch.where(keep, s, -math.inf).add(noise[r]).argmax()))
+    want_lp = torch.log_softmax(raw.double(), -1)[torch.arange(b), torch.tensor(want)]
+    got = tok.cpu().tolist()
+    err = {"tokens": got, "plain": want, "mismatches": sum(a != w for a, w in zip(got, want)),
+           "max_abs_logprob": float((lp.cpu().double() - want_lp).abs().max()),
+           "penalty_moved_greedy": int(raw[0].argmax()) != want[0], "forced": want[4] == 123}
+    ok = (err["mismatches"] == 0 and err["max_abs_logprob"] <= SERVE_TOL["sampler_logprob"]
+          and err["penalty_moved_greedy"] and err["forced"])
+    return err, ok
+
+
+def serve_requests(rng, c, vocab):
+    """Phase serve's traffic: ``requests`` greedy requests (prompt lengths
+    and budgets seeded in their ranges; the first ``alone`` get stop
+    sequences once their generate() reference is known) and ``sampled``
+    seeded sampled ones (temperature 0.8, top_p 0.9, min_p 0.05 on every
+    other one)."""
+    reqs = []
+    for i in range(c["requests"]):
+        n = int(rng.integers(c["min_len"], c["max_len"] + 1))
+        new = c["alone_new"] if i < c["alone"] else int(rng.integers(c["min_new"],
+                                                                      c["max_new"] + 1))
+        reqs.append({"tokens": rng.integers(0, vocab, n).tolist(), "max_new_tokens": new})
+    for i in range(c["sampled"]):
+        n = int(rng.integers(c["min_len"], min(c["max_len"], 200) + 1))
+        reqs.append({"tokens": rng.integers(0, vocab, n).tolist(),
+                     "max_new_tokens": int(rng.integers(*c["sampled_new"])), "temperature": 0.8,
+                     "top_p": 0.9, "seed": 1000 + i, **({"min_p": 0.05} if i % 2 else {})})
+    return reqs
+
+
+def drive_engine(eng, reqs, threads, stagger, order=None):
+    """Every request through ``eng`` as a stream, from ``threads`` threads:
+    thread t starts at t * stagger and submits its share of ``order`` one
+    after another. Returns {i: (tokens, logprobs, ttft_s)} and the wall
+    seconds."""
+    order = list(range(len(reqs))) if order is None else order
+    out, errors = {}, []
+
+    def worker(t):
+        time.sleep(t * stagger)
+        for i in order[t::threads]:
+            try:
+                t0 = time.perf_counter()
+                s = eng.stream(yield_logprobs=True, **reqs[i])
+                first = None
+                for _ in s:
+                    if first is None:
+                        first = time.perf_counter() - t0
+                out[i] = (s.result, s.logprobs, first)
+            except Exception as e:  # noqa: BLE001 - reported as a failed check
+                errors.append(f"{i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in ts):
+        raise SystemExit(f"serve phase: requests failed: {errors[:3]}")
+    return out, time.perf_counter() - t0
+
+
+def teacher_forced(model, prompt, completion):
+    """Logits (len(completion), V) of a forward without a cache over
+    prompt + completion, at the positions that chose each completion
+    token."""
+    with torch.no_grad():
+        row = torch.tensor([prompt + completion], device=model.device)
+        logits = model(row)[0]
+    return logits[len(prompt) - 1:len(prompt) - 1 + len(completion)].float()
+
+
+def hold_to_reference(tokens, logprobs, ref_logits, ref_tokens, tol):
+    """A completion against a reference's logits at the same positions.
+    With ``ref_tokens`` None the reference is teacher-forced on
+    ``tokens`` (its logits at every position follow the same prefix):
+    mismatches with its argmax where its top-2 gap exceeds
+    ``tol["logits"]``, at every position. Otherwise the reference decoded
+    ``ref_tokens`` itself: the two agree up to the first position where
+    they part, which must be one where the reference's gap is within the
+    limit (after it they continue from different prefixes). Also max
+    |logprob - the reference's logprob of the same token| over the
+    positions compared."""
+    n = len(tokens) if ref_tokens is None else min(len(tokens), len(ref_tokens))
+    if n == 0:
+        return {"confident_mismatches": 0, "parted_at": 0, "max_abs_logprob": 0.0}
+    dev = ref_logits.device
+    gaps = top2_gap(ref_logits[:n])
+    idx = torch.tensor(tokens[:n], device=dev)
+    lp_err = (torch.tensor(logprobs[:n], device=dev)
+              - torch.log_softmax(ref_logits[:n], -1)[torch.arange(n, device=dev), idx]).abs()
+    if ref_tokens is None:
+        wrong = (ref_logits[:n].argmax(-1) != idx) & (gaps > tol["logits"])
+        return {"confident_mismatches": int(wrong.sum()), "parted_at": n,
+                "max_abs_logprob": float(lp_err.max())}
+    part = next((i for i in range(n) if tokens[i] != ref_tokens[i]), n)
+    return {"confident_mismatches": int(part < n and bool(gaps[part] > tol["logits"])),
+            "parted_at": part, "max_abs_logprob": float(lp_err[:part + 1].max())}
+
+
+def http(url, path, body=None, timeout=900):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class Serving:
+    """An in-process ``serve_model`` server on a free port, stopped on exit."""
+
+    def __init__(self, gen):
+        from tensorflowonspark_tpu_torch.tools import serve_model
+
+        self.server = serve_model.make_server(None, port=0, gen=gen)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+
+
+def decode_step_ms(model, batch, prompt_len, steps, vocab, device):
+    """ms per ``decode_step`` at ``batch`` rows after a ``prompt_len``
+    prefill: phase decode's measure, taken again in this phase so that the
+    engine tax compares two numbers of one run, and under the engine's
+    grad mode (``inference_mode``, which skips autograd's per-op
+    bookkeeping that ``no_grad`` keeps)."""
+    from tensorflowonspark_tpu_torch.models.llama import decode_step, init_cache, prefill
+
+    p = torch.randint(0, vocab, (batch, prompt_len), device=device,
+                      generator=torch.Generator(device=device).manual_seed(3))
+    with torch.inference_mode():
+        cache = init_cache(model.cfg, batch, device)
+        logits, pos = prefill(model, cache, p)
+        tok = logits.argmax(-1)
+        for i in range(steps + 2):
+            if i == 2:
+                sync_on(device.type == "cuda")
+                t0 = time.perf_counter()
+            tok = decode_step(model, cache, tok, pos).argmax(-1)
+            pos = pos + 1
+    sync_on(device.type == "cuda")
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def engine_timing(eng, prompts, new):
+    """Steady decode with every slot live: one stream per slot, admitted
+    together; ms per engine step over the last-admitted row's whole
+    blocks, from the sweep of its first block (its tokens 1..k arrive
+    together) to its last token. Its first token is no start: it reaches
+    the host only after the window's next blocks are dispatched. Also the
+    sync-debug warnings the scheduler raised meanwhile, and the engine's
+    decode steps over that run."""
+    import warnings
+
+    marks, lock = {}, threading.Lock()
+
+    def consume(i, s):
+        stamps = [time.perf_counter() for _ in s]
+        with lock:
+            marks[i] = stamps
+
+    steps0 = eng.steps
+    cuda = eng._cuda
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            streams = [eng.stream(p, new, eos_id=-1) for p in prompts]
+            ts = [threading.Thread(target=consume, args=(i, s)) for i, s in enumerate(streams)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=900)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+    k = eng._decode_block
+    row = max(marks.values(), key=lambda m: m[0])  # admitted last: its blocks are whole
+    steps = len(row) - 1 - k
+    step_ms = (row[-1] - row[k]) * 1e3 / steps
+    # torch's own words for a synchronizing call (its one-time notice that
+    # the mode is a prototype is not one)
+    syncs = [str(w.message)[:160] for w in caught
+             if "called a synchronizing" in str(w.message).lower()]
+    blocks = (eng.steps - steps0) / eng._decode_block
+    return {"rows": len(prompts), "new_tokens": new, "engine_step_ms": step_ms,
+            "tokens_per_s": len(prompts) * steps / (row[-1] - row[k]),
+            "sync_warnings": len(syncs), "sync_warnings_per_block": len(syncs) / max(blocks, 1),
+            "sync_warning_examples": sorted(set(syncs))[:3], "blocks": blocks}
+
+
+def profile_blocks(eng, prompts, new, blocks=2):
+    """Device busy against idle over ``blocks`` decode blocks of the
+    engine with every slot live: the profiler opens once every row
+    decodes and closes after ``blocks`` more blocks reach the host; the
+    streams are then cancelled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI's slow first start, outside
+        torch.ones(1, device=eng._device).add_(1)
+        torch.cuda.synchronize()
+    streams = [eng.stream(p, new, eos_id=-1) for p in prompts]
+    got = [0] * len(streams)
+
+    def consume(i, s):
+        for _ in s:
+            got[i] += 1
+
+    ts = [threading.Thread(target=consume, args=(i, s)) for i, s in enumerate(streams)]
+    for t in ts:
+        t.start()
+    k = eng._decode_block
+    deadline = time.perf_counter() + 120
+    while min(got) < 2 and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start, t0 = got[0], time.perf_counter()
+        while got[0] < start + blocks * k and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        tokens = got[0] - start
+    for s in streams:
+        s.close()
+    for t in ts:
+        t.join(timeout=120)
+    busy = sum((getattr(e, "self_device_time_total", 0) or 0) for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)) / 1e3
+    return {"blocks": blocks, "tokens_in_window": tokens, "wall_ms": wall_ms,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms}
+
+
+def start_server_process(ckpt, cfg, preset, model_flag, device, tmp, c, budget):
+    """``python -m tensorflowonspark_tpu_torch.tools.serve_model`` on
+    ``device`` over the checkpoint, on a free port it writes to a file."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port_file = os.path.join(tmp, "port")
+    log = open(os.path.join(tmp, "server.log"), "w")
+    args = [sys.executable, "-m", "tensorflowonspark_tpu_torch.tools.serve_model",
+            "--llama-checkpoint", ckpt, "--model", model_flag,
+            "--config-overrides", cli_overrides(cfg, preset), "--gen-engine", "continuous",
+            "--gen-widths", ",".join(map(str, c["widths"])), "--gen-slots", str(c["slots"]),
+            "--gen-batch-size", str(c["slots"]), "--max-new-tokens", str(budget),
+            "--gen-decode-block", str(c["block"]), "--port", "0", "--port-file", port_file,
+            "--gen-warmup"] + (["--device", "cpu"] if device.type == "cpu" else [])
+    proc = subprocess.Popen(args, cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "port_file": port_file, "log": log, "t0": time.perf_counter()}
+
+
+def server_process_url(sp, timeout):
+    deadline = time.perf_counter() + timeout
+    while not os.path.exists(sp["port_file"]):
+        if sp["proc"].poll() is not None or time.perf_counter() > deadline:
+            return None
+        time.sleep(0.2)
+    with open(sp["port_file"]) as f:
+        return f"http://127.0.0.1:{int(f.read())}"
+
+
+def stop_server_process(sp) -> int | None:
+    proc = sp["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    sp["log"].close()
+    return proc.returncode
+
+
+def phase_serve(fa, layers=16, rehearse=None, seed=0):
+    """The continuous-batching engine and the HTTP server on the card (see
+    the module docstring, phase 11); raises SystemExit when a check fails.
+    ``layers`` cuts the depth (chip_faults.py); with ``rehearse={"device":
+    "cpu", "tiny": True, "sizes": {...}}`` it runs at a tiny size on the
+    CPU. Returns every kernel's launches in one /score call."""
+    from tensorflowonspark_tpu_torch.compute.checkpoint import save_checkpoint
+    from tensorflowonspark_tpu_torch.models.llama import Llama, LlamaConfig
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.tools import generate_text, serve_model
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**SERVE, **rehearse.get("sizes", {})}
+    if rehearse.get("tiny"):
+        preset, model_flag = LlamaConfig.tiny(dtype=torch.bfloat16), "tiny"
+    else:
+        preset, model_flag = LlamaConfig.llama_1b(), "1b"
+    cfg = dataclasses.replace(preset, remat=False, num_layers=layers)
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg, device=device, seed=seed).to(cfg.dtype)  # weights cast once to bf16
+    rng = np.random.default_rng(seed + 10)
+    err, ok, nums = {}, {}, {}
+    tol = {**SERVE_TOL, "score_launches_per_call": cfg.num_layers if cuda else 0}
+    eng_kw = dict(slots=c["slots"], prompt_widths=c["widths"])
+    # the servers' decode budget (README's recipe); their /score width is
+    # serve_model.score_width of it: 769, whose 768 positions meet B1's gate
+    budget = c["budget"]
+    part_s, lap_t = {}, [t_phase]
+
+    def lap(name):  # seconds of each part of the phase
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+    gen = dict(model=model_flag, config_overrides=cli_overrides(cfg, preset), device=device.type,
+               widths=",".join(map(str, c["widths"])), width=c["widths"][-1],
+               batch_size=c["slots"], max_new_tokens=budget, decode_block=c["block"],
+               pipeline_depth=c["depth"])
+    tmp = tempfile.mkdtemp(prefix="tfos_serve_")
+    sp = None
+    try:
+        # (e), started first and read at the end: the server as a process
+        ckpt = save_checkpoint(os.path.join(tmp, "ckpt"),
+                               {"params": {n: p.detach() for n, p in model.named_parameters()}})
+        gen["checkpoint"] = ckpt
+        sp = start_server_process(ckpt, cfg, preset, model_flag, device, tmp, c, budget)
+
+        # the sampler against its plain version
+        err["sampler"], ok["sampler"] = sampler_check(device, cfg.vocab_size)
+
+        # references: generate() alone for the first `alone` requests
+        # (whose stop sequences come from it), a teacher-forced forward for all
+        reqs = serve_requests(rng, c, cfg.vocab_size)
+        alone = {}
+        for i in range(c["alone"]):
+            r = reqs[i]
+            toks, logits = greedy_capture(model, torch.tensor([r["tokens"]], device=device),
+                                          r["max_new_tokens"])
+            toks = toks[0].tolist()
+            r["stop"] = [[toks[12]], [toks[11], toks[12]]] if i % 2 == 0 else [toks[20:23]]
+            alone[i] = (stop_trim(toks, r["stop"]), logits[0])
+        greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+        lap("setup_and_references")
+
+        # (a) staggered greedy and sampled traffic, decode_block 8, depth 2
+        eng = ContinuousBatcher(model, decode_block=c["block"], pipeline_depth=c["depth"],
+                                **eng_kw)
+        try:
+            if sp is not None:
+                # the process's warm-up must not share the card with the
+                # timed runs below
+                err["process_start_s"] = None
+                url_e = server_process_url(sp, c["port_wait_s"])
+                err["process_start_s"] = time.perf_counter() - sp["t0"]
+                lap("process_wait")
+            eng.warmup()
+            runs = {}
+            runs["k8_d2"], wall = drive_engine(eng, reqs, c["threads"], c["stagger"])
+            nums["a_wall_s"] = wall
+            ttft = sorted(runs["k8_d2"][i][2] for i in range(len(reqs)))
+            nums["ttft_p50_ms"] = float(np.percentile(ttft, 50)) * 1e3
+            nums["ttft_p95_ms"] = float(np.percentile(ttft, 95)) * 1e3
+            a = {"alone": {}, "teacher_forced": {}, "length_errors": []}
+            for i in greedy:
+                toks, lps, _ = runs["k8_d2"][i]
+                r = reqs[i]
+                if len(toks) > r["max_new_tokens"] or (
+                        "stop" not in r and len(toks) != r["max_new_tokens"]):
+                    a["length_errors"].append(i)
+                tf = teacher_forced(model, r["tokens"], toks) if toks else None
+                if tf is not None:
+                    a["teacher_forced"][i] = hold_to_reference(toks, lps, tf, None, tol)
+                if i in alone:
+                    want, logits = alone[i]
+                    a["alone"][i] = {**hold_to_reference(toks, lps, logits, want, tol),
+                                     "equal": toks == want, "length": len(toks),
+                                     "want_length": len(want)}
+            a["confident_mismatches"] = sum(v["confident_mismatches"]
+                                            for part in ("alone", "teacher_forced")
+                                            for v in a[part].values())
+            a["max_abs_logprob"] = max(v["max_abs_logprob"] for part in ("alone", "teacher_forced")
+                                       for v in a[part].values())
+            a["alone_equal"] = sum(v["equal"] for v in a["alone"].values())
+            a["stops_hit"] = sum(v["want_length"] < reqs[i]["max_new_tokens"]
+                                 for i, v in a["alone"].items())
+            a["alone_lengths_ok"] = all(
+                v["length"] == v["want_length"] or v["confident_mismatches"] == 0
+                and v["parted_at"] < v["want_length"] for v in a["alone"].values())
+            a["finite"] = all(math.isfinite(x) for i in runs["k8_d2"] for x in runs["k8_d2"][i][1])
+            err["staggered"] = {k: v for k, v in a.items() if k not in ("teacher_forced",)}
+            ok["staggered"] = (a["confident_mismatches"] == 0 and not a["length_errors"]
+                               and a["max_abs_logprob"] <= tol["logprob"] and a["finite"]
+                               and a["alone_lengths_ok"] and a["stops_hit"] >= 1)
+            lap("a_staggered")
+
+            # (b) the same traffic on the same engine at decode_block 1 and
+            # depth 1 (set_knobs), in the reverse order of arrival: block,
+            # depth, order, slots and batchmates all differ from (a)
+            eng.set_knobs(decode_block=1, pipeline_depth=1)
+            runs["k1_d1_reversed"], _ = drive_engine(eng, reqs, c["threads"], c["stagger"],
+                                                     list(reversed(range(len(reqs)))))
+            eng.set_knobs(decode_block=c["block"], pipeline_depth=c["depth"])
+            base = runs["k8_d2"]
+            diff = {name: [i for i in base if runs[name][i][0] != base[i][0]]
+                    for name in runs if name != "k8_d2"}
+            sampled = [i for i in range(len(reqs)) if i not in greedy]
+            err["identity"] = {"differing": diff, "sampled": len(sampled),
+                               "sampled_distinct": len({tuple(base[i][0]) for i in sampled})}
+            ok["identity"] = all(not v for v in diff.values()) and \
+                err["identity"]["sampled_distinct"] == len(sampled)
+            lap("b_replay")
+
+            # (c) chunked prefill with the prefix cache: a hit equals a
+            # miss exactly; chunked against bucketed by the confident rule
+            system = rng.integers(0, cfg.vocab_size, c["system"]).tolist()
+            tails = [rng.integers(0, cfg.vocab_size, n).tolist()
+                     for n in (c["chunk"] // 3, c["chunk"] // 2)]
+            prompts_c = [system + t for t in tails]
+            new_c = c["chunk_new"]
+            chunk_kw = dict(eng_kw, prefill_chunk=c["chunk"], decode_block=c["block"])
+            hit_eng = ContinuousBatcher(model, prefix_cache=c["prefix"], **chunk_kw)
+            try:
+                # a miss (then stored), a hit on the whole prompt, a hit on
+                # the system prefix
+                miss_lp = [hit_eng.submit(prompts_c[0], new_c, return_logprobs=True)]
+                again = hit_eng.submit(prompts_c[0], new_c)
+                shared = hit_eng.submit(prompts_c[1], new_c)
+                pstats = {k: v for k, v in hit_eng.stats().items() if k.startswith("prefix")}
+            finally:
+                hit_eng.close()
+            miss_eng = ContinuousBatcher(model, **chunk_kw)
+            try:
+                miss_lp.append(miss_eng.submit(prompts_c[1], new_c, return_logprobs=True))
+            finally:
+                miss_eng.close()
+            miss = [m for m, _ in miss_lp]
+            bucketed = eng.submit_many(prompts_c, new_c)
+            rule = [hold_to_reference(m, m_lp, teacher_forced(model, p, b), b, tol)
+                    for (m, m_lp), p, b in zip(miss_lp, prompts_c, bucketed)]
+            err["chunked"] = {"prefix": pstats, "hit_equals_miss": [again == miss[0],
+                                                                    shared == miss[1]],
+                              "chunked_vs_bucketed": rule}
+            ok["chunked"] = (again == miss[0] and shared == miss[1]
+                             and pstats.get("prefix_hits", 0) >= 2
+                             and all(r["confident_mismatches"] == 0
+                                     and r["max_abs_logprob"] <= tol["logprob"] for r in rule))
+            lap("c_chunked")
+
+            # (f) the engine's step with every slot live against the bare
+            # decode_step at the same batch, in alternating rounds (the
+            # host's pace drifts within a run): the tax is the median of
+            # the rounds' ratios; host syncs per block, device busy share
+            tp = [rng.integers(0, cfg.vocab_size, c["timing_prompt"]).tolist()
+                  for _ in range(c["slots"])]
+            rounds = []
+            for _ in range(c["tax_rounds"]):
+                bare = decode_step_ms(model, c["slots"], c["timing_prompt"], c["tax_steps"],
+                                      cfg.vocab_size, device)
+                rounds.append({**engine_timing(eng, tp, c["timing_new"]),
+                               "decode_step_ms_b8": bare})
+            mid = lambda k: float(np.median([r[k] for r in rounds]))  # noqa: E731
+            nums.update(
+                rows=c["slots"], new_tokens=c["timing_new"], rounds=len(rounds),
+                engine_step_ms=mid("engine_step_ms"), tokens_per_s=mid("tokens_per_s"),
+                decode_step_ms_b8=mid("decode_step_ms_b8"),
+                engine_tax=float(np.median([r["engine_step_ms"] / r["decode_step_ms_b8"]
+                                            for r in rounds])),
+                sync_warnings=sum(r["sync_warnings"] for r in rounds),
+                blocks=sum(r["blocks"] for r in rounds),
+                sync_warning_examples=sorted({x for r in rounds
+                                              for x in r["sync_warning_examples"]})[:3],
+                tax_rounds=[{k: r[k] for k in ("engine_step_ms", "decode_step_ms_b8")}
+                            for r in rounds])
+            nums["sync_warnings_per_block"] = nums["sync_warnings"] / max(nums["blocks"], 1)
+            if cuda:
+                nums["profile"] = profile_blocks(eng, tp, c["profile_new"])
+            lap("f_timing")
+            # the server's checks take the greedy requests of the smallest
+            # budgets; /v1/completions and the process one without a stop
+            short = sorted(greedy, key=lambda i: reqs[i]["max_new_tokens"])[:c["slots"]]
+            i1 = min((i for i in greedy if "stop" not in reqs[i]),
+                     key=lambda i: reqs[i]["max_new_tokens"])
+            bucket_out = {i: runs["k8_d2"][i] for i in short}
+        finally:
+            eng.close()
+
+        # (d) the HTTP server in process: the continuous engine, then the
+        # fixed path
+        with Serving({**gen, "engine": "continuous", "warmup": True}) as srv:
+            url = srv.url
+            got, errors = {}, []
+
+            def post(i):
+                r = reqs[i]
+                body = {"prompts": [r["tokens"]], "max_new_tokens": r["max_new_tokens"],
+                        **({"stop": r["stop"]} if "stop" in r else {})}
+                code, text = http(url, "/generate", body)
+                if code != 200:
+                    errors.append(text[:300])
+                else:
+                    got[i] = json.loads(text)["completions"][0]
+
+            ts = [threading.Thread(target=post, args=(i,)) for i in bucket_out]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=900)
+            i0 = greedy[0]
+            code_s, text_s = http(url, "/generate", {"prompts": [reqs[i0]["tokens"]],
+                                                     "max_new_tokens": reqs[i0]["max_new_tokens"],
+                                                     "stop": reqs[i0]["stop"], "stream": True})
+            stream_lines = [json.loads(x) for x in text_s.splitlines()] if code_s == 200 else []
+            code_v, text_v = http(url, "/v1/completions", {
+                "prompt": reqs[i1]["tokens"], "max_tokens": reqs[i1]["max_new_tokens"],
+                "temperature": 0})
+            v1 = json.loads(text_v)["choices"][0]["tokens"] if code_v == 200 else None
+            score_rows = [reqs[i]["tokens"] + runs["k8_d2"][i][0] for i in short]
+            sync_on(cuda)
+            fa.reset_launches()
+            bn_kernels.reset_launches()
+            code_sc, text_sc = http(url, "/score", {"sequences": score_rows})
+            sync_on(cuda)
+            launches = {**fa.LAUNCHES, **bn_kernels.LAUNCHES}
+            lp_kernel = json.loads(text_sc)["logprobs"] if code_sc == 200 else None
+            metrics = http(url, "/metrics")
+            stats = http(url, "/stats")
+        lap("d_server_continuous")
+        retarget(model, dataclasses.replace(cfg, attention_impl="xla"))
+        score_width = serve_model.score_width(c["widths"][-1], budget, cfg.max_seq_len)
+        lp_plain = generate_text.build_score_fn(model, width=score_width, bsz=c["slots"])(
+            score_rows)
+        retarget(model, cfg)
+        score_err = max((float(np.abs(np.array(k) - np.array(p)).max())
+                         for k, p in zip(lp_kernel or [], lp_plain)), default=math.inf)
+        fixed_prompts = [reqs[i]["tokens"] for i in short]
+        with Serving({**gen, "engine": "fixed", "max_new_tokens": c["fixed_new"]}) as srv:
+            code_f, text_f = http(srv.url, "/generate", {"prompts": fixed_prompts})
+        fixed_want, _ = generate_text.decode_batches(model, fixed_prompts, batch_size=c["slots"],
+                                                     width=c["widths"][-1],
+                                                     max_new_tokens=c["fixed_new"],
+                                                     pad_to_batch=True)
+        err["http"] = {
+            "generate_errors": errors[:3],
+            "generate_mismatches": [i for i in bucket_out if got.get(i) != bucket_out[i][0]],
+            "stream_equal": bool(stream_lines) and stream_lines[-1].get("completion")
+            == runs["k8_d2"][i0][0],
+            "v1_equal": v1 == runs["k8_d2"][i1][0],
+            "score_width": score_width, "score_launches": launches,
+            "score_max_abs_logprob": score_err,
+            "metrics": metrics[0], "metrics_has_engine": "engine_ttft_seconds" in metrics[1],
+            "stats": stats[0], "fixed": code_f,
+            "fixed_equal": code_f == 200 and json.loads(text_f)["completions"] == fixed_want,
+        }
+        h = err["http"]
+        ok["http"] = (not h["generate_errors"] and not h["generate_mismatches"]
+                      and h["stream_equal"] and h["v1_equal"] and h["metrics"] == 200
+                      and h["metrics_has_engine"] and h["stats"] == 200 and h["fixed_equal"]
+                      and score_err <= tol["score"]
+                      and launches == {"fwd": tol["score_launches_per_call"], "dq": 0, "dkv": 0,
+                                       "pair": 0, "cross": 0})
+        lap("d_server_fixed")
+
+        # (e) read: one /generate and one /score of the process
+        e = {"start_s": err.pop("process_start_s", None)}
+        if url_e is None:
+            e["error"] = "the server process did not come up"
+        else:
+            code_g, text_g = http(url_e, "/generate", {"prompts": [reqs[i1]["tokens"]],
+                                                       "max_new_tokens": reqs[i1]["max_new_tokens"]})
+            code_c, text_c = http(url_e, "/score", {"sequences": score_rows[:1]})
+            e["generate_equal"] = code_g == 200 and json.loads(text_g)["completions"][0] \
+                == runs["k8_d2"][i1][0]
+            e["score_max_abs"] = (float(np.abs(np.array(json.loads(text_c)["logprobs"][0])
+                                               - np.array(lp_kernel[0])).max())
+                                  if code_c == 200 and lp_kernel else math.inf)
+        e["returncode"] = stop_server_process(sp)
+        sp = None
+        lap("e_process")
+        err["process"] = e
+        ok["process"] = bool(e.get("generate_equal")) and e.get("score_max_abs", math.inf) <= 1e-4
+        if not ok["process"]:
+            with open(os.path.join(tmp, "server.log")) as f:
+                e["log"] = f.read()[-3000:]
+    finally:
+        if sp is not None:
+            stop_server_process(sp)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    nums["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "serve", "part": "numbers", **nums})
+    good = all(ok.values())
+    emit({"phase": "serve", "case": "serve_checks", "seed": seed, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "requests": len(reqs), "slots": c["slots"],
+          "widths": list(c["widths"]), "checks": ok, "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("serve phase failed: " + ", ".join(k for k, v in ok.items() if not v))
+    return launches
+
+
 def decode_seeds(fa, seeds: list[int]) -> int:
     """Phase decode alone at each of ``seeds`` (weights and data), to read
     the spread of its checks against ``DECODE_TOL``: every seed's check
@@ -2435,17 +3163,19 @@ def main(argv: list[str]) -> int:
     emit({"phase": "elastic", "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
     score = phase_decode(fa)
+    torch.cuda.empty_cache()
+    serve = phase_serve(fa)
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
          "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
-         "score_launches": score[kind], **rows[kind]}
+         "score_launches": score[kind], "serve_launches": serve[kind], **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
          "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind],
-         "score_launches": score[kind], **bn_rows[kind]}
+         "score_launches": score[kind], "serve_launches": serve[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)

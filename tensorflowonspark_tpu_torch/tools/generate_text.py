@@ -175,11 +175,14 @@ def decode_batches(model, prompts: list[list[int]], *, batch_size: int, width: i
                    max_new_tokens: int, generator=None, temperature: float = 0.0,
                    top_k: int | None = None, top_p: float | None = None,
                    min_p: float | None = None, eos_id: int | None = None,
-                   uniform: bool = False, mesh=None):
+                   uniform: bool = False, mesh=None, pad_to_batch: bool = False):
     """Decode ``prompts`` at one (batch_size, width) shape: short chunks pad
     rows by repeating the last prompt (results trimmed), short prompts
     right-pad to ``width`` (``generate``'s prompt_lengths path;
     ``uniform=True`` skips it when every prompt is exactly ``width``).
+    ``pad_to_batch``: decode at exactly ``batch_size`` rows even when
+    fewer prompts are given (a server's one shape: a prompt's greedy
+    completion then does not depend on how many prompts came with it).
     Returns ``(completions, generator)``, each completion trimmed at its
     first ``eos_id``; the generator (advanced) continues the stream.
     ``mesh`` (decode on a device mesh, ROADMAP A9) is not ported yet.
@@ -197,7 +200,7 @@ def decode_batches(model, prompts: list[list[int]], *, batch_size: int, width: i
     bad = [i for i, p in enumerate(prompts) if not p or len(p) > width]
     if bad:
         raise PromptError(f"prompt rows {bad} are empty or exceed the decode width ({width})")
-    bsz = min(batch_size, len(prompts))
+    bsz = batch_size if pad_to_batch else min(batch_size, len(prompts))
     out: list[list[int]] = []
     for lo in range(0, len(prompts), bsz):
         chunk = prompts[lo:lo + bsz]

@@ -57,7 +57,7 @@ VERBATIM = [
     "utils/metrics.py", "obs/registry.py", "obs/flightrec.py", "obs/cluster.py",
     "cluster/wire.py", "cluster/marker.py", "feed/columnar.py",
     "cluster/reservation.py", "cluster/reservation_client.py", "cluster/launchers.py",
-    "launcher.py", "cluster/node_main.py",
+    "launcher.py", "cluster/node_main.py", "obs/reqtrace.py",
 ]
 # copies changed where the JAX package uses JAX or reaches a module the
 # port does not have: the (first, last) lines of the original that each
@@ -90,6 +90,7 @@ HISTORY = [
     (r"\(the PR-\d+ pattern, applied to the", "(lint, gate and runtime checks, applied to the"),
     (r"the PR-\d+-era plane", "the earlier plane"),
     (r"was the round-\d+ trap", "was an early trap"),
+    (r"trace proof \([A-Z]+ \d+\) gates", "trace proof gates"),
 ]
 
 

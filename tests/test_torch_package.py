@@ -64,6 +64,8 @@ def test_import_leaves_jax_out():
         "import tensorflowonspark_tpu_torch.parallel, tensorflowonspark_tpu_torch.compute.checkpoint\n"
         "import tensorflowonspark_tpu_torch.feed.prefetch, tensorflowonspark_tpu_torch.cluster.context\n"
         "import tensorflowonspark_tpu_torch.tools.generate_text\n"
+        "import tensorflowonspark_tpu_torch.serving.engine, tensorflowonspark_tpu_torch.serving\n"
+        "import tensorflowonspark_tpu_torch.tools.serve_model\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -117,6 +119,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
         build_eval_step(lambda p, b: None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Llama(cfg, device="cpu").device == torch.device("cpu")
+    # the server resolves its device before it reads the checkpoint
+    from tensorflowonspark_tpu_torch.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.tools import serve_model
+
+    for engine in ("fixed", "continuous"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_model.make_server(None, port=0, gen={"checkpoint": "/nonexistent",
+                                                       "model": "tiny", "engine": engine})
+    eng = ContinuousBatcher(Llama(cfg, device="cpu"), slots=1, prompt_widths=(4,))
+    try:
+        assert eng.submit([1, 2], 2) and eng._state.tok.device == torch.device("cpu")
+    finally:
+        eng.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")
 
@@ -360,6 +375,32 @@ def test_chip_smoke_decode_phase_rehearses_on_cpu(capsys):
     assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
 
 
+def test_chip_smoke_serve_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase serve runs on the CPU at a tiny size: every
+    check of the sampler and (a)-(e) passes — the engine against
+    generate() alone and a teacher-forced forward, its replays token for
+    token, chunked prefill with prefix hits, the server in process and as
+    a process on the CPU — and no kernel is launched."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    launches = smoke.phase_serve(fa, layers=2, rehearse={"device": "cpu", "tiny": True, "sizes": {
+        "requests": 5, "sampled": 2, "threads": 3, "min_len": 4, "max_len": 30, "min_new": 4,
+        "max_new": 12, "sampled_new": (4, 8), "widths": (8, 16, 32), "slots": 3, "block": 4,
+        "stagger": 0.01, "alone": 2, "alone_new": 24, "chunk": 8, "prefix": 4, "system": 16,
+        "chunk_new": 6, "timing_prompt": 8, "timing_new": 9, "profile_new": 9, "fixed_new": 6,
+        "port_wait_s": 120.0, "budget": 24}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "serve_checks" and check["ok"]
+    assert sorted(check["checks"]) == ["chunked", "http", "identity", "process", "sampler",
+                                       "staggered"]
+    assert check["err"]["staggered"]["stops_hit"] >= 1
+    assert check["err"]["chunked"]["prefix"]["prefix_hits"] >= 2
+    assert lines[-2]["part"] == "numbers" and lines[-2]["sync_warnings"] == 0
+    assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
@@ -368,7 +409,8 @@ FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_
           "snapshot_casts_bf16", "hydrate_stale_step", "fallback_no_rewind",
           "heartbeat_ignores_epoch", "elastic_plain_attention", "decode_slot_mask_strict",
           "rolling_pos_init_zero", "int8_drop_v_scale", "first_token_padded_position",
-          "eos_not_sticky", "qk_logits_bf16"]
+          "eos_not_sticky", "qk_logits_bf16", "admit_wrong_slot", "decode_row0_pos_frozen",
+          "block_surplus_emitted", "penalty_after_temperature", "sample_counter_is_step"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)
