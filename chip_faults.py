@@ -38,14 +38,22 @@ at 4 layers for ``serving/engine.py`` (the sampler against its plain
 version, staggered traffic against generate() alone and a teacher-forced
 forward, the same traffic at other decode blocks, depths and arrival
 orders token for token, chunked prefill with the prefix cache, and the
-HTTP server in process and as a process).
+HTTP server in process and as a process), and ``chip_smoke.phase_fleet`` at
+4 layers, parts b and c, for ``serving/router.py``, ``cachetier/prefix.py``
+and ``cachetier/service.py`` (an L2 hit across replicas equal to a miss, a
+lookup under another weights version a miss, an entry offered while the
+device is stalled equal to what was written, 50 lookups after
+``CacheServer.close()`` all misses with no connection left open, and a
+dropped dispatch and a wedged replica under traffic: every request
+resolved once, failovers, respawns).
 Faults that show only across ranks (a dropped ``all_reduce``, a rank's
 rows lost from an uneven split) cannot show on one card; the CPU tests
 plant those at 2 ranks (``tests/test_torch_mesh.py``). The unchanged
 copy runs every check once. The children run at once, then those of the
 decode check (a llama_1b of 4 layers each, and two CLI processes) at once,
 then those of the serve check (a llama_1b of 4 layers and a server process
-each) at once,
+each) at once, then those of the fleet check (a llama_1b of 4 layers and
+three engines each) at once,
 then those of the elastic check (the unchanged copy's and the elastic
 faults', two or three node processes each) three at a time. Each prints its check lines; this script prints one
 JSON line per fault with the readings of the last, and exits non-zero
@@ -72,14 +80,19 @@ ELASTIC = Path("tensorflowonspark_tpu_torch/compute/elastic.py")
 NODE = Path("tensorflowonspark_tpu_torch/cluster/node.py")
 LLAMA = Path("tensorflowonspark_tpu_torch/models/llama.py")
 ENGINE = Path("tensorflowonspark_tpu_torch/serving/engine.py")
+ROUTER = Path("tensorflowonspark_tpu_torch/serving/router.py")
+PREFIX_L2 = Path("tensorflowonspark_tpu_torch/cachetier/prefix.py")
+CACHE_SERVICE = Path("tensorflowonspark_tpu_torch/cachetier/service.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
 DECODE_CHECK = "phase_decode(fa, layers=4)"
 SERVE_CHECK = "phase_serve(fa, layers=4)"
+FLEET_CHECK = 'phase_fleet(fa, layers=4, parts="bc")'
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
           CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
-          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK, ENGINE: SERVE_CHECK}
+          ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK, ENGINE: SERVE_CHECK,
+          ROUTER: FLEET_CHECK, PREFIX_L2: FLEET_CHECK, CACHE_SERVICE: FLEET_CHECK}
 # faults whose check is not their source's
 FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
                 "elastic_plain_attention": ELASTIC_CHECK}
@@ -302,6 +315,30 @@ FAULTS = {
         "counter = st.pos + 1",
         "counter = torch.full_like(st.pos, self.steps)",
     ),
+    # a stream whose dispatch fails before its first token is not failed over
+    "router_no_failover_before_first_token": (
+        ROUTER,
+        "                if not self._failed_over:",
+        "                if False:",
+    ),
+    # the prefix L2's key leaves out the weights version
+    "l2_key_without_version": (
+        PREFIX_L2,
+        "return f\"{version}|{adapter or ''}|{toks}\"",
+        "return f\"|{adapter or ''}|{toks}\"",
+    ),
+    # the filler copies an offered entry without waiting for its event
+    "l2_filler_before_event": (
+        PREFIX_L2,
+        "side.wait_event(ready)  # the entry is written before it is read",
+        "pass  # the entry is written before it is read",
+    ),
+    # CacheServer.close() closes the listener but leaves connections open
+    "cache_close_leaves_conns_open": (
+        CACHE_SERVICE,
+        "conns, self._conns = list(self._conns), set()",
+        "conns, self._conns = [], self._conns",
+    ),
 }
 
 
@@ -345,7 +382,8 @@ def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Pope
 
 # checks whose children run after the others, in this order: check ->
 # (label, how many children at once)
-LATER = {DECODE_CHECK: ("decode", 7), SERVE_CHECK: ("serve", 6), ELASTIC_CHECK: ("elastic", 3)}
+LATER = {DECODE_CHECK: ("decode", 7), SERVE_CHECK: ("serve", 6), FLEET_CHECK: ("fleet", 5),
+         ELASTIC_CHECK: ("elastic", 3)}
 
 
 def jobs() -> list[tuple[list, int]]:

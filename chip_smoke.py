@@ -163,13 +163,44 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    card over a ``save_checkpoint`` of the weights: one ``/generate`` and
    one ``/score`` against the in-process results, then stopped. Peak
    device memory, the phase's ``wall_s`` and each part's seconds.
+12. fleet — the serving fleet on phase serve's model and traffic (8 slots
+   an engine, widths 128/256/512, prefill chunk 128, a 4-entry prefix
+   cache): (a) ``ServingFleet(factory=..., replicas=2, prefix_l2=
+   {"mode": "inproc", "capacity_bytes": 1 << 30})`` behind
+   ``FleetRouter`` against one engine on the same traffic: no confident
+   greedy token different, each replica a quarter of the requests or
+   more, tokens/s and TTFT p50/p95 of both, sync-debug warnings per block
+   over the fleet's traffic (L2 offers and lookups included); (b) a
+   384-token prompt on
+   replica 0, its extension on replica 1: an L2 hit (the tier filled),
+   tokens equal to a miss's, another weights version a miss, the lookup's
+   ms and the blob's bytes; the filler's blob of an entry written behind
+   a device stall equal to the entry; 50 lookups after
+   ``CacheServer.close()``, every one a miss; (c) under traffic, a dropped dispatch
+   (``fleet.dispatch``) and a wedged replica (``engine.fetch`` held past
+   the watchdog): every request resolved once (a completion, or one
+   terminal error after its first token), failovers, the seats READY
+   again and the seconds it took; (d) ``ServingFleet(spawn_argv=[serve_model
+   ... --device cuda], replicas=2, prefix_l2={"mode": "spawn", ...})``,
+   built in the background from a checkpoint of the weights while (a)
+   warms: the L2 across the children (the lookup bound from a timed
+   loopback lookup of one entry), a child SIGKILLed under streaming load
+   (queued streams fail over, decoding ones end with ``ReplicaGone``) and
+   respawned, both children's greedy tokens against (a)'s engine, the
+   cachetier daemon SIGKILLed (lookups miss in their bound, the fleet
+   serves, the daemon respawns on its port); (e) ``serve_model`` in
+   process with ``replicas=2`` and ``cachetier_l2`` at a daemon:
+   ``/generate`` equal to the engine's, ``/healthz`` per replica,
+   ``/metrics`` with both replica labels, ``/score`` at width 769 with 16
+   B1 launches. Peak device memory, ``wall_s``, each part's seconds.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
 sum over its 53 BatchNorm layers; ``mesh_launches`` counts phase mesh's
 timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
 ``score_launches`` phase decode's scoring call, ``serve_launches`` the
-``/score`` call of phase serve's server),
+``/score`` call of phase serve's server, ``fleet_launches`` that of phase
+fleet's server),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -186,6 +217,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2674,8 +2706,6 @@ def engine_timing(eng, prompts, new):
     the host only after the window's next blocks are dispatched. Also the
     sync-debug warnings the scheduler raised meanwhile, and the engine's
     decode steps over that run."""
-    import warnings
-
     marks, lock = {}, threading.Lock()
 
     def consume(i, s):
@@ -3120,6 +3150,677 @@ def phase_serve(fa, layers=16, rehearse=None, seed=0):
     return launches
 
 
+# phase fleet: sizes (a CPU rehearsal passes smaller ones). The model,
+# traffic, slots and widths are phase serve's (SERVE); the engines prefill
+# in chunks of `chunk` with a `prefix`-entry L1, which the L2 needs.
+FLEET = dict(replicas=2, l2_bytes=1 << 30, l2_prompt=384, l2_tail=16, l2_new=32, watchdog_s=3.0,
+             wedge_s=9.0, drain_s=60.0, probe_s=0.5, close_rounds=50, lookup_bound_s=0.5, spawn_wait_s=600.0, ready_wait_s=300.0,
+             stall_cycles=2_000_000_000, lookup_rounds=5, server_requests=4, post_kill=4,
+             light_requests=12, light_new=64)
+# (c) and (d) drive the `light_requests` greedy requests of phase serve's
+# traffic at budgets of at most `light_new` tokens.
+# Limits of phase fleet: phase serve's confident-token rule for the fleet's
+# greedy completions against one engine's on the same traffic, and each
+# replica's share of the requests (at least a quarter).
+FLEET_TOL = dict(logits=SERVE_TOL["logits"], logprob=SERVE_TOL["logprob"], share=0.25)
+
+
+def drive_outcomes(target, reqs, threads, stagger, order=None, started=None):
+    """``drive_engine`` that keeps every request's outcome instead of
+    failing on the first error: {i: ("ok", tokens, logprobs, ttft_s)} or
+    {i: ("err", error type, message, tokens yielded)}; ``started`` (an
+    Event) is set once every thread has opened its first stream. Returns
+    the outcomes, the wall seconds and whether every thread ended."""
+    order = list(range(len(reqs))) if order is None else order
+    out, opened = {}, [0]
+    lock = threading.Lock()
+
+    def worker(t):
+        time.sleep(t * stagger)
+        for i in order[t::threads]:
+            n, t0, first = 0, time.perf_counter(), None
+            try:
+                s = target.stream(yield_logprobs=True, **reqs[i])
+                with lock:
+                    opened[0] += 1
+                    if started is not None and opened[0] >= threads:
+                        started.set()
+                for _ in s:
+                    n += 1
+                    if first is None:
+                        first = time.perf_counter() - t0
+                out[i] = ("ok", s.result, s.logprobs, first)
+            except Exception as e:  # noqa: BLE001 - an outcome of its own
+                out[i] = ("err", type(e).__name__, str(e)[:200], n)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    return out, time.perf_counter() - t0, not any(t.is_alive() for t in ts)
+
+
+def against_engine(model, reqs, greedy, got, want, tol):
+    """The fleet's greedy completions ``got`` (outcomes) against one
+    engine's ``want`` on the same requests, by phase serve's confident
+    rule: where the two part, the engine's teacher-forced gap must be
+    within the limit. Requests that did not complete are left out."""
+    rows = {}
+    for i in greedy:
+        if i not in got or got[i][0] != "ok":
+            continue
+        toks, lps = got[i][1], got[i][2]
+        ref = want[i][1]
+        tf = teacher_forced(model, reqs[i]["tokens"], ref) if ref else None
+        # a request at a smaller budget than the engine's is its prefix
+        same = toks == ref[:len(toks)]
+        rows[i] = ({**hold_to_reference(toks, lps, tf, ref, tol), "equal": same}
+                   if tf is not None else {"confident_mismatches": int(not same),
+                                           "max_abs_logprob": 0.0, "equal": same})
+    return {"compared": len(rows),
+            "confident_mismatches": sum(r["confident_mismatches"] for r in rows.values()),
+            "max_abs_logprob": max((r["max_abs_logprob"] for r in rows.values()), default=0.0),
+            "equal": sum(r["equal"] for r in rows.values()),
+            "parted": {i: r.get("parted_at") for i, r in rows.items() if not r["equal"]}}
+
+
+def close_race_check(rounds):
+    """The port's ``CacheServer.close()`` against a lookup on a connection
+    it had open: fill, lookup (a hit), close, lookup — ``rounds`` times.
+    Every lookup after ``close()`` must miss within the client's timeout,
+    and no connection of the server may stay open."""
+    from tensorflowonspark_tpu_torch.cachetier import CacheClient, CacheServer, CacheTier
+
+    hits_before = misses_after = open_after = 0
+    slowest = 0.0
+    for r in range(rounds):
+        tier = CacheTier(capacity_bytes=1 << 20)
+        srv = CacheServer(tier).start()
+        cl = CacheClient(srv.address)
+        try:
+            cl.fill("prefix", f"k{r}", b"v")
+            deadline = time.perf_counter() + 10
+            while tier.stats()["fills"] < 1 and time.perf_counter() < deadline:
+                time.sleep(0.001)
+            hits_before += cl.lookup("prefix", f"k{r}", timeout_s=2.0) == b"v"
+            srv.close()
+            open_after += len(srv._conns)
+            t0 = time.perf_counter()
+            misses_after += cl.lookup("prefix", f"k{r}", timeout_s=0.5) is None
+            slowest = max(slowest, time.perf_counter() - t0)
+        finally:
+            cl.close()
+            srv.close()
+    return {"rounds": rounds, "hits_before_close": hits_before,
+            "misses_after_close": misses_after, "conns_open_after_close": open_after,
+            "slowest_miss_s": slowest}
+
+
+def filler_ordering_check(device, cfg, stall_cycles):
+    """The L2 filler against the work that writes an entry: a single-row
+    cache of ``cfg``'s size is written on the current stream behind a
+    device stall (``torch.cuda._sleep``) and offered at once, with no host
+    sync. The blob that reaches the tier must equal the written cache bit
+    for bit: a filler that copied before the entry's event would read
+    the memory's earlier contents (a cache of other values, freed just
+    before, which the allocator hands out again)."""
+    from tensorflowonspark_tpu_torch.cachetier import CacheTier, LocalClient, PrefixL2
+    from tensorflowonspark_tpu_torch.cachetier.prefix import NS, decode_leaves, prefix_key
+    from tensorflowonspark_tpu_torch.models.llama import init_cache
+    from tensorflowonspark_tpu_torch.serving.engine import _cache_leaves
+
+    tier = CacheTier(capacity_bytes=1 << 31)
+    l2 = PrefixL2(LocalClient(tier), chunk=1, lookup_timeout_s=5.0)
+    try:
+        old = _cache_leaves(init_cache(cfg, 1, device))
+        for t in old:
+            t.fill_(3)
+        del old, t
+        leaves = _cache_leaves(init_cache(cfg, 1, device))  # the same memory again
+        if device.type == "cuda":
+            torch.cuda._sleep(stall_cycles)
+        for t in leaves:
+            t.fill_(7)  # queued behind the stall
+        l2.offer([1, 2], leaves, None, "v0")
+        deadline = time.perf_counter() + 60
+        while tier.stats()["fills"] < 1 and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        blob = tier.lookup(NS, prefix_key("v0", None, [1, 2]))
+        got = decode_leaves(blob) if blob is not None else None
+        sync_on(device.type == "cuda")
+        want = [t.cpu() for t in leaves]
+        equal = got is not None and len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        return {"blob_bytes": len(blob) if blob is not None else 0, "leaves": len(want),
+                "blob_equals_entry": bool(equal)}
+    finally:
+        l2.close()
+
+
+def tcp_lookup_ms(nbytes, rounds):
+    """ms of one ``CacheClient.lookup`` of an ``nbytes`` blob from a
+    ``CacheServer`` over loopback TCP (median of ``rounds``)."""
+    from tensorflowonspark_tpu_torch.cachetier import CacheClient, CacheServer, CacheTier
+
+    tier = CacheTier(capacity_bytes=4 * nbytes)
+    tier.fill("prefix", "k", bytes(nbytes))
+    srv = CacheServer(tier).start()
+    cl = CacheClient(srv.address)
+    try:
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            blob = cl.lookup("prefix", "k", timeout_s=30.0)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if blob is None or len(blob) != nbytes:
+                return None
+        return float(np.median(times))
+    finally:
+        cl.close()
+        srv.close()
+
+
+def spawn_fleet_checks(model, sf, srouter, reqs, light, want, c, l2_case, tol):
+    """Part (d) on a started subprocess fleet ``sf`` behind ``srouter``:
+    the daemon L2 across the children, a child SIGKILLed under streaming
+    load (the requests ``light`` of ``reqs``) and respawned, the daemon
+    SIGKILLed and respawned. Returns the readings with ``ok``."""
+    from tensorflowonspark_tpu_torch.cachetier import CacheClient
+
+    d = {}
+    views = sf.views()
+    # the L2 across processes: the prefix on child 0, the extension on child 1
+    prompt, ext, miss = l2_case
+    fills0 = sf.cache_stats()["fills"]
+    views[0]["handle"].submit_many([prompt], c["l2_new"])
+    deadline = time.perf_counter() + 120
+    while (sf.cache_stats() or {"fills": fills0})["fills"] - fills0 < 3 and \
+            time.perf_counter() < deadline:
+        time.sleep(0.05)
+    hits0 = views[1]["handle"].stats().get("prefix_l2_hits", 0)
+    hit = views[1]["handle"].submit_many([ext], c["l2_new"])[0]
+    d["l2"] = {"fills": sf.cache_stats()["fills"] - fills0, "child0": {k: v for k, v in views[0]["handle"].stats().items() if "prefix" in k}, "child1": {k: v for k, v in views[1]["handle"].stats().items() if "prefix" in k},
+               "child1_l2_hits": views[1]["handle"].stats().get("prefix_l2_hits", 0) - hits0,
+               "hit_equals_inproc_miss": miss is None or hit == miss}
+    l2_ok = (d["l2"]["fills"] >= 1 and d["l2"]["child1_l2_hits"] >= 1
+             and d["l2"]["hit_equals_inproc_miss"])
+
+    # SIGKILL a child while it holds queued streams (not yet at their first
+    # token: they fail over) and decoding ones (they end with ReplicaGone)
+    fo0 = srouter.stats()["router"]["failovers"]
+    victim = views[1]
+    started, res = threading.Event(), {}
+
+    def traffic():
+        res["out"], _, res["ended"] = drive_outcomes(srouter, reqs, c["threads"], c["stagger"],
+                                                     order=light, started=started)
+
+    tr = threading.Thread(target=traffic)
+    tr.start()
+    started.wait(timeout=300)
+    deadline, at_kill = time.perf_counter() + 60, {}
+    while time.perf_counter() < deadline:
+        at_kill = victim["handle"].stats()
+        if at_kill.get("queue_depth", 0) >= 1 or at_kill.get("prefill_in_progress"):
+            break
+        time.sleep(0.01)
+    t_kill = time.perf_counter()
+    os.kill(victim["handle"].pid, 9)
+    post = {}
+
+    def submit_one(i):
+        try:
+            post[i] = ("ok", srouter.submit(reqs[i]["tokens"], reqs[i]["max_new_tokens"]))
+        except Exception as e:  # noqa: BLE001 - an outcome of its own
+            post[i] = ("err", type(e).__name__)
+
+    burst = [threading.Thread(target=submit_one, args=(i,)) for i in light[:c["post_kill"]]]
+    for t in burst:
+        t.start()
+    tr.join(timeout=900)
+    for t in burst:
+        t.join(timeout=900)
+    out = res.get("out", {})
+    errors = [o for o in out.values() if o[0] != "ok"]
+    cmp_d = against_engine(model, reqs, light, out, want, tol)
+
+    # while the child respawns: SIGKILL the cachetier daemon — lookups miss
+    # within their bound, the fleet serves, the supervisor respawns it on
+    # the same port
+    with sf._cache_lock:
+        daemon = sf._cache_proc
+    addr = sf.cachetier_address
+    t_dead = time.perf_counter()
+    os.kill(daemon.pid, 9)
+    daemon.wait()
+    probe = CacheClient(addr)
+    try:
+        t0 = time.perf_counter()
+        missed = probe.lookup("prefix", "any", timeout_s=c["lookup_bound_s"]) is None
+        miss_s = time.perf_counter() - t0
+    finally:
+        probe.close()
+    i = light[0]
+    served = srouter.submit(reqs[i]["tokens"], reqs[i]["max_new_tokens"]) is not None
+    deadline = time.perf_counter() + 60
+    while time.perf_counter() < deadline and not (sf._cache_respawns >= 1
+                                                  and sf.cache_stats() is not None):
+        time.sleep(0.05)
+    d["daemon"] = {"lookup_missed": missed, "miss_s": miss_s, "served_while_down": served,
+                   "respawns": sf._cache_respawns, "same_address": sf.cachetier_address == addr,
+                   "respawn_s": time.perf_counter() - t_dead, "stats": sf.cache_stats()}
+    daemon_ok = (missed and miss_s <= c["lookup_bound_s"] + 1.0 and served
+                 and sf._cache_respawns >= 1 and sf.cache_stats() is not None
+                 and d["daemon"]["same_address"])
+
+    back = wait_seats_ready(sf, 1, c["ready_wait_s"])
+    respawn_s = None if back is None else time.perf_counter() - t_kill
+    # both children serve again, the respawned one included
+    again = {}
+    for v in sf.views():
+        i = light[-1 - v["rid"]]
+        toks = v["handle"].submit_many([reqs[i]["tokens"]], reqs[i]["max_new_tokens"],
+                                       return_logprobs=True)
+        again[i] = ("ok", toks[0][0], toks[1][0], None)
+    cmp_again = against_engine(model, reqs, list(again), again, want, tol)
+    d["kill"] = {"at_kill": {k: at_kill.get(k) for k in ("queue_depth", "slots_busy",
+                                                          "prefill_in_progress")},
+                 "failovers": srouter.stats()["router"]["failovers"] - fo0,
+                 "resolved": len(out), "ended": res.get("ended"),
+                 "terminal_errors": [(o[1], o[3]) for o in errors][:6],
+                 "post_kill": [o[0] for o in post.values()], "respawn_s": respawn_s,
+                 "vs_engine": cmp_d, "children_vs_engine": cmp_again,
+                 "outstanding": srouter.stats()["router"]["outstanding"]}
+    k = d["kill"]
+    kill_ok = (bool(res.get("ended")) and len(out) == len(light) and k["failovers"] >= 1
+               and all(o[1] == "ReplicaGone" and o[3] > 0 for o in errors)
+               and all(x == "ok" for x in k["post_kill"]) and back is not None
+               and not k["outstanding"] and cmp_d["confident_mismatches"] == 0
+               and cmp_again["confident_mismatches"] == 0 and cmp_again["compared"] == len(again))
+    d["checks"] = {"l2": l2_ok, "kill": kill_ok, "daemon": daemon_ok}
+    d["ok"] = l2_ok and kill_ok and daemon_ok
+    return d
+
+
+def wait_seats_ready(fleet, respawns, timeout):
+    """Seconds until every seat is READY with at least ``respawns``
+    respawns in all (None past ``timeout``)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        seats = fleet.stats()["seats"]
+        if all(s["state"] == "ready" for s in seats.values()) and \
+                sum(s["respawns"] for s in seats.values()) >= respawns:
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    return None
+
+
+def start_cache_daemon(tmp, capacity):
+    """``python -m tensorflowonspark_tpu_torch.cachetier.service`` on a free
+    port; returns (process, address)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    pf = os.path.join(tmp, "cachetier.port")
+    proc = subprocess.Popen([sys.executable, "-m", "tensorflowonspark_tpu_torch.cachetier.service",
+                             "--port", "0", "--port-file", pf, "--capacity-bytes", str(capacity)],
+                            cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    deadline = time.perf_counter() + 60
+    while not os.path.exists(pf):
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            proc.kill()
+            raise SystemExit("fleet phase: the cachetier daemon did not start")
+        time.sleep(0.05)
+    with open(pf) as f:
+        return proc, f"127.0.0.1:{int(f.read())}"
+
+
+def phase_fleet(fa, layers=16, rehearse=None, seed=0, parts="abcde"):
+    """The serving fleet on the card (see the module docstring, phase 12);
+    raises SystemExit when a check fails. ``layers`` cuts the depth and
+    ``parts`` picks the parts to run (chip_faults.py runs "bc"; d and e
+    need a, whose single engine is their reference); with
+    ``rehearse={"device": "cpu", "tiny": True, "sizes": {...}}`` it runs at a
+    tiny size on the CPU. Returns every kernel's launches in one /score
+    call of the fleet server (zeros without part e)."""
+    from tensorflowonspark_tpu_torch.cachetier.prefix import NS, prefix_key
+    from tensorflowonspark_tpu_torch.compute.checkpoint import save_checkpoint
+    from tensorflowonspark_tpu_torch.models.llama import Llama, LlamaConfig, init_cache
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.serving import ContinuousBatcher, FleetRouter, ServingFleet
+    from tensorflowonspark_tpu_torch.utils import failpoints
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**SERVE, **FLEET, **rehearse.get("sizes", {})}
+    if rehearse.get("tiny"):
+        preset, model_flag = LlamaConfig.tiny(dtype=torch.bfloat16), "tiny"
+    else:
+        preset, model_flag = LlamaConfig.llama_1b(), "1b"
+    cfg = dataclasses.replace(preset, remat=False, num_layers=layers)
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = Llama(cfg, device=device, seed=seed).to(cfg.dtype)
+    rng = np.random.default_rng(seed + 10)  # phase serve's traffic
+    err, ok, nums = {}, {}, {}
+    tol = {**FLEET_TOL, "score_launches_per_call": cfg.num_layers if cuda else 0}
+    eng_kw = dict(slots=c["slots"], prompt_widths=c["widths"], decode_block=c["block"],
+                  pipeline_depth=c["depth"], prefill_chunk=c["chunk"], prefix_cache=c["prefix"])
+    budget = c["budget"]
+    entry_bytes = sum(t.numel() * t.element_size()
+                      for layer in init_cache(cfg, 1, device="meta") for t in layer.values())
+    part_s, lap_t = {}, [t_phase]
+    launches = {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+
+    reqs = serve_requests(rng, c, cfg.vocab_size)
+    for r in reqs:  # phase serve's stop sequences need its generate() references
+        r.pop("stop", None)
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    capped = [dict(r, max_new_tokens=min(r["max_new_tokens"], c["light_new"])) for r in reqs]
+    light = greedy[:c["light_requests"]]
+    tmp = tempfile.mkdtemp(prefix="tfos_fleet_")
+    spawned = {}  # (d)'s fleet, built in the background while (a)'s engines warm up
+    fleet = router = None
+    try:
+        # the lookup bound of the daemon's L2: a lookup of one entry over
+        # loopback TCP, with room for a loaded host
+        nums["tcp_lookup_ms"] = tcp_lookup_ms(entry_bytes, c["lookup_rounds"])
+        nums["entry_bytes"] = entry_bytes
+        lookup_s = max(0.5, 10 * (nums["tcp_lookup_ms"] or 100.0) / 1e3)
+        nums["spawn_lookup_timeout_s"] = lookup_s
+        if "d" in parts or "e" in parts:
+            ckpt = save_checkpoint(os.path.join(tmp, "ckpt"),
+                                   {"params": {n: p.detach() for n, p in model.named_parameters()}})
+        if "d" in parts:
+            root = os.path.dirname(os.path.abspath(__file__))
+            argv = ["--llama-checkpoint", ckpt, "--model", model_flag, "--seed", str(seed),
+                    "--config-overrides", cli_overrides(cfg, preset), "--device", device.type,
+                    "--gen-engine", "continuous", "--gen-widths", ",".join(map(str, c["widths"])),
+                    "--gen-slots", str(c["slots"]), "--gen-batch-size", str(c["slots"]),
+                    "--max-new-tokens", str(budget), "--gen-decode-block", str(c["block"]),
+                    "--gen-pipeline-depth", str(c["depth"]), "--gen-prefill-chunk",
+                    str(c["chunk"]), "--gen-prefix-cache", str(c["prefix"]), "--gen-warmup",
+                    "--cachetier-lookup-timeout", str(lookup_s)]
+            env = dict(os.environ, PYTHONPATH=root, **({} if cuda else {"OMP_NUM_THREADS": "1"}))
+
+            def build_spawned():
+                t0 = time.perf_counter()
+                try:
+                    spawned["fleet"] = ServingFleet(
+                        spawn_argv=argv, replicas=c["replicas"], probe_interval=c["probe_s"],
+                        drain_timeout=10.0, start_timeout=c["spawn_wait_s"],
+                        prefix_l2={"mode": "spawn", "capacity_bytes": c["l2_bytes"],
+                                   "lookup_timeout_s": lookup_s},
+                        spawn_kwargs={"env": env, "spawn_timeout": c["spawn_wait_s"]})
+                except BaseException as e:  # noqa: BLE001 - read by part d
+                    spawned["error"] = f"{type(e).__name__}: {e}"
+                spawned["start_s"] = time.perf_counter() - t0
+
+            spawner = threading.Thread(target=build_spawned, daemon=True)
+            spawner.start()
+        lap("setup")
+
+        # (a) the in-process fleet against one engine on phase serve's traffic
+        def factory():
+            return ContinuousBatcher(model, watchdog_s=c["watchdog_s"], **eng_kw)
+
+        single = ContinuousBatcher(model, **eng_kw)
+        try:
+            single.warmup()
+            fleet = ServingFleet(factory=factory, replicas=c["replicas"],
+                                 probe_interval=c["probe_s"], drain_timeout=c["drain_s"],
+                                 prefix_l2={"mode": "inproc", "capacity_bytes": c["l2_bytes"]})
+            router = FleetRouter(fleet)
+            if "d" in parts:
+                spawner.join(timeout=c["spawn_wait_s"])  # its warm-ups must not share the card
+            lap("a_build")
+            if "a" in parts:
+                want, wall_1, _ = drive_outcomes(single, reqs, c["threads"], c["stagger"])
+                before = [v["handle"].stats()["admitted"] for v in fleet.views()]
+                steps0 = [v["handle"].engine.steps for v in fleet.views()]
+                # the fleet's traffic under sync-debug mode: every L2 offer
+                # and lookup of both replicas is in this window
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        got, wall_f, ended = drive_outcomes(router, reqs, c["threads"],
+                                                            c["stagger"])
+                    finally:
+                        if cuda:
+                            torch.cuda.set_sync_debug_mode(0)
+                share = [v["handle"].stats()["admitted"] - b for v, b in zip(fleet.views(), before)]
+                syncs = [str(w.message)[:160] for w in caught
+                         if "called a synchronizing" in str(w.message).lower()]
+                blocks = sum(v["handle"].engine.steps - s0
+                             for v, s0 in zip(fleet.views(), steps0)) / c["block"]
+                offered = sum(v["handle"].stats().get("prefix_l2_offered", 0)
+                              for v in fleet.views())
+                err["l2_syncs"] = {"sync_warnings": len(syncs),
+                                   "sync_warnings_per_block": len(syncs) / max(blocks, 1),
+                                   "sync_warning_examples": sorted(set(syncs))[:3],
+                                   "blocks": blocks, "offered": offered}
+                ok["l2_syncs"] = not syncs and blocks > 0 and offered > 0
+                single_ok = all(want.get(i, ("err",))[0] == "ok" for i in range(len(reqs)))
+                cmp_a = against_engine(model, reqs, greedy, got, want, tol)
+
+                def rate(out, wall):
+                    return sum(len(o[1]) for o in out.values() if o[0] == "ok") / wall
+
+                def ttft(out, q):
+                    return float(np.percentile([o[3] for o in out.values() if o[0] == "ok"],
+                                               q)) * 1e3
+                nums["a"] = {"fleet_tokens_per_s": rate(got, wall_f),
+                             "engine_tokens_per_s": rate(want, wall_1),
+                             "fleet_ttft_p50_ms": ttft(got, 50), "fleet_ttft_p95_ms": ttft(got, 95),
+                             "engine_ttft_p50_ms": ttft(want, 50),
+                             "engine_ttft_p95_ms": ttft(want, 95),
+                             "fleet_wall_s": wall_f, "engine_wall_s": wall_1}
+                errors = {i: o for i, o in got.items() if o[0] != "ok"}
+                err["a_inproc"] = {**cmp_a, "share": share, "errors": list(errors.values())[:3],
+                                   "sampled_equal": sum(got[i][1] == want[i][1]
+                                                        for i in range(len(reqs))
+                                                        if i not in greedy and i in got
+                                                        and got[i][0] == "ok"),
+                                   "single_ok": single_ok}
+                ok["a_inproc"] = (ended and single_ok and not errors and len(got) == len(reqs)
+                                  and cmp_a["confident_mismatches"] == 0
+                                  and cmp_a["compared"] == len(greedy)
+                                  and min(share) >= tol["share"] * len(reqs))
+                lap("a_traffic")
+        finally:
+            single.close()
+
+        views = fleet.views()
+        version = views[0]["handle"].engine.weights_version
+        prompt = rng.integers(0, cfg.vocab_size, c["l2_prompt"]).tolist()
+        ext = prompt + rng.integers(0, cfg.vocab_size, c["l2_tail"]).tolist()
+        miss = None
+        if "b" in parts:
+            # (b) a prefix prefilled on replica 0 is an L2 hit on replica 1
+            fills0 = fleet.cache_stats()["fills"]
+            views[0]["handle"].submit_many([prompt], c["l2_new"])
+            deadline = time.perf_counter() + 120
+            key = prefix_key(version, None, prompt)
+            while fleet.cache_tier.lookup(NS, key) is None and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            blob = fleet.cache_tier.lookup(NS, key)
+            eng1 = views[1]["handle"].engine
+            hits0 = eng1.stats().get("prefix_l2_hits", 0)
+            hit = views[1]["handle"].submit_many([ext], c["l2_new"])[0]
+            hits1 = eng1.stats().get("prefix_l2_hits", 0)
+            miss_eng = ContinuousBatcher(model, **eng_kw)
+            try:
+                miss = miss_eng.submit(ext, c["l2_new"])
+            finally:
+                miss_eng.close()
+            l2 = eng1._prefix_l2
+            t0 = time.perf_counter()
+            found = l2.lookup(ext, None, version)
+            lookup_ms = (time.perf_counter() - t0) * 1e3
+            other = l2.lookup(ext, None, version + "-other")
+            err["b_l2"] = {"fills": fleet.cache_stats()["fills"] - fills0,
+                           "replica1_l2_hits": hits1 - hits0, "hit_equals_miss": hit == miss,
+                           "blob_bytes": len(blob) if blob is not None else 0,
+                           "lookup_ms": lookup_ms, "hit_depth": found[1] if found else None,
+                           "other_version_misses": other is None,
+                           "tier": fleet.cache_stats()}
+            nums["l2_lookup_ms"], nums["l2_blob_bytes"] = lookup_ms, err["b_l2"]["blob_bytes"]
+            ok["b_l2"] = (err["b_l2"]["fills"] >= 1 and err["b_l2"]["replica1_l2_hits"] >= 1
+                          and hit == miss and found is not None and other is None)
+            # the filler's ordering and the server's close race, at their
+            # own checks (chip_faults plants a fault in each)
+            err["l2_filler_ordering"] = filler_ordering_check(device, cfg, c["stall_cycles"])
+            ok["l2_filler_ordering"] = err["l2_filler_ordering"]["blob_equals_entry"]
+            err["close_race"] = close_race_check(c["close_rounds"])
+            r = err["close_race"]
+            ok["close_race"] = (r["hits_before_close"] == r["rounds"] == r["misses_after_close"]
+                                and r["conns_open_after_close"] == 0)
+            lap("b_l2")
+
+        if "c" in parts:
+            # (c) mid-traffic, a dropped dispatch (round 1), then a wedged
+            # replica (round 2): every request resolves once, as a
+            # completion or one terminal error after its first token
+            cc = {"rounds": []}
+            for fault in ("dispatch_drop", "wedge"):
+                fo0 = router.stats()["router"]["failovers"]
+                resp0 = sum(s["respawns"] for s in fleet.stats()["seats"].values())
+                started, res = threading.Event(), {}
+
+                def traffic():
+                    res["out"], _, res["ended"] = drive_outcomes(router, capped, c["threads"],
+                                                                 c["stagger"], order=light,
+                                                                 started=started)
+
+                tr = threading.Thread(target=traffic)
+                tr.start()
+                started.wait(timeout=300)
+                t_fault = time.perf_counter()
+                if fault == "dispatch_drop":
+                    failpoints.arm("fleet.dispatch", "drop", count=1)
+                else:
+                    failpoints.arm("engine.fetch", "delay", delay_s=c["wedge_s"], count=1)
+                tr.join(timeout=900)
+                failpoints.disarm_all()
+                back = wait_seats_ready(fleet, resp0 + 1, c["ready_wait_s"])
+                out = res.get("out", {})
+                errors = [o for o in out.values() if o[0] != "ok"]
+                rnd = {"fault": fault, "failovers": router.stats()["router"]["failovers"] - fo0,
+                       "resolved": len(out), "ended": res.get("ended"),
+                       "terminal_errors": [(o[1], o[3]) for o in errors][:6],
+                       "respawn_s": None if back is None else time.perf_counter() - t_fault,
+                       "outstanding": router.stats()["router"]["outstanding"],
+                       "states": fleet.states()}
+                rnd["ok"] = (bool(res.get("ended")) and len(out) == len(light)
+                             and back is not None and not rnd["outstanding"]
+                             and all(o[1] in ("EngineWedged", "ReplicaGone") and o[3] > 0
+                                     for o in errors)
+                             and (rnd["failovers"] >= 1 or fault == "wedge"))
+                cc["rounds"].append(rnd)
+            nums["respawn_s"] = [r["respawn_s"] for r in cc["rounds"]]
+            err["c_failover"] = cc
+            ok["c_failover"] = all(r["ok"] for r in cc["rounds"])
+            lap("c_failover")
+        router.close()
+        fleet = router = None
+
+        if "d" in parts:
+            # (d) the subprocess fleet with the daemon L2
+            d = {"start_s": spawned.get("start_s"), "error": spawned.get("error")}
+            sf = spawned.get("fleet")
+            ok["d_spawn"] = False
+            if sf is not None:
+                srouter = FleetRouter(sf)
+                try:
+                    d.update(spawn_fleet_checks(model, sf, srouter, capped, light, want, c,
+                                                (prompt, ext, miss), tol))
+                finally:
+                    srouter.close()
+                ok["d_spawn"] = d.pop("ok")
+            err["d_spawn"] = d
+            lap("d_spawn")
+
+        if "e" in parts:
+            # (e) serve_model with --gen-replicas 2 --cachetier-l2, in process
+            daemon, addr = start_cache_daemon(tmp, c["l2_bytes"])
+            try:
+                gen = dict(checkpoint=ckpt, model=model_flag, device=device.type,
+                           config_overrides=cli_overrides(cfg, preset), engine="continuous",
+                           widths=",".join(map(str, c["widths"])), width=c["widths"][-1],
+                           batch_size=c["slots"], max_new_tokens=budget,
+                           decode_block=c["block"], pipeline_depth=c["depth"],
+                           prefill_chunk=c["chunk"], prefix_cache=c["prefix"], warmup=True,
+                           replicas=c["replicas"], probe_interval=c["probe_s"],
+                           cachetier_l2=addr, cachetier_lookup_timeout_s=lookup_s)
+                pick = sorted(greedy, key=lambda i: reqs[i]["max_new_tokens"])[:c["server_requests"]]
+                with Serving(gen) as srv:
+                    url = srv.url
+                    got_e = {}
+                    for i in pick:
+                        code, text = http(url, "/generate", {"prompts": [reqs[i]["tokens"]],
+                                                             "max_new_tokens":
+                                                             reqs[i]["max_new_tokens"]})
+                        got_e[i] = json.loads(text)["completions"][0] if code == 200 else None
+                    health = http(url, "/healthz")
+                    metrics = http(url, "/metrics")
+                    stats = http(url, "/stats")
+                    rows = [reqs[i]["tokens"] + want[i][1] for i in pick]
+                    sync_on(cuda)
+                    fa.reset_launches()
+                    bn_kernels.reset_launches()
+                    code_sc, text_sc = http(url, "/score", {"sequences": rows})
+                    sync_on(cuda)
+                    launches = {**fa.LAUNCHES, **bn_kernels.LAUNCHES}
+                    lp = json.loads(text_sc)["logprobs"] if code_sc == 200 else []
+                h = json.loads(health[1]) if health[0] == 200 else {}
+                e = {"generate_equal": [got_e[i] == want[i][1] for i in pick],
+                     "healthz": health[0], "replicas": sorted(h.get("replicas", {})),
+                     "metrics_replica_labels": [f'replica="{r}"' in metrics[1]
+                                                for r in range(c["replicas"])],
+                     "stats_mode": json.loads(stats[1]).get("mode") if stats[0] == 200 else None,
+                     "score_launches": launches,
+                     "score_finite": bool(lp) and all(math.isfinite(x) for row in lp for x in row)}
+            finally:
+                daemon.kill()
+                daemon.wait()
+            err["e_server"] = e
+            ok["e_server"] = (all(e["generate_equal"]) and e["healthz"] == 200
+                              and e["replicas"] == [str(r) for r in range(c["replicas"])]
+                              and all(e["metrics_replica_labels"]) and e["stats_mode"] == "fleet"
+                              and e["score_finite"]
+                              and launches == {"fwd": tol["score_launches_per_call"], "dq": 0,
+                                               "dkv": 0, "pair": 0, "cross": 0})
+            lap("e_server")
+    finally:
+        failpoints.disarm_all()
+        if router is not None:
+            router.close()
+        if spawned.get("fleet") is not None:
+            spawned["fleet"].close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    nums["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "fleet", "part": "numbers", **nums})
+    good = bool(ok) and all(ok.values())
+    emit({"phase": "fleet", "case": "fleet_checks", "seed": seed, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "requests": len(reqs), "replicas": c["replicas"],
+          "parts": parts, "checks": ok, "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("fleet phase failed: " + ", ".join(k for k, v in ok.items() if not v))
+    return launches
+
+
 def decode_seeds(fa, seeds: list[int]) -> int:
     """Phase decode alone at each of ``seeds`` (weights and data), to read
     the spread of its checks against ``DECODE_TOL``: every seed's check
@@ -3165,17 +3866,21 @@ def main(argv: list[str]) -> int:
     score = phase_decode(fa)
     torch.cuda.empty_cache()
     serve = phase_serve(fa)
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(fa)
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
          "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
-         "score_launches": score[kind], "serve_launches": serve[kind], **rows[kind]}
+         "score_launches": score[kind], "serve_launches": serve[kind],
+         "fleet_launches": fleet[kind], **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
          "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind],
-         "score_launches": score[kind], "serve_launches": serve[kind], **bn_rows[kind]}
+         "score_launches": score[kind], "serve_launches": serve[kind],
+         "fleet_launches": fleet[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)

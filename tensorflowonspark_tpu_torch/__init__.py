@@ -11,9 +11,30 @@ What is ported:
   (``cluster.node``) that join a ``torch.distributed`` process group
   (``cluster.context``), pull batches through ``feed.datafeed.DataFeed``
   into ``feed.prefetch.DevicePrefetcher``, train, and checkpoint with
-  ``compute.checkpoint``; ``examples.llama_fsdp`` drives it.
+  ``compute.checkpoint``; ``examples.llama_fsdp`` drives it;
+- training on a device mesh: ``compute.mesh`` and ``compute.layout``
+  (the JAX package's placement tables as DTensor placements), ZeRO in
+  ``compute.train``, the kernels on each rank's shard
+  (``parallel.context``), sharded checkpoints;
+- elastic membership: ``compute.elastic.ElasticTrainer`` (reshard in
+  memory, hydrate from a peer's snapshot, checkpoint fallback) with
+  ``cluster.context.reinitialize_distributed`` and ``tfcluster.run(
+  elastic=True)``;
+- KV-cache decode: ``models.llama`` ``init_cache`` / ``prefill`` /
+  ``decode_step`` / ``generate``, sampling, scoring through the flash
+  forward, and ``tools.generate_text``;
+- serving: ``serving.engine.ContinuousBatcher`` (continuous batching with
+  chunked prefill and a prefix cache) and ``tools.serve_model``'s HTTP
+  server;
+- the serving fleet: ``serving.fleet.ServingFleet`` (in-process or
+  subprocess replicas, health probes, respawns) behind
+  ``serving.router.FleetRouter`` (placement, shedding, failover), and the
+  cache tier ``cachetier`` (store, TCP daemon, clients) with its
+  fleet-global prefix L2 ``cachetier.prefix.PrefixL2``;
+  ``serve_model --gen-replicas N --cachetier-l2 HOST:PORT`` serves them.
 
-Importing the package imports nothing heavy and builds no kernel.
+What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item. Importing the package imports nothing heavy and builds no kernel.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ kernels. :func:`param_shardings` takes a ``view`` that maps each port
 parameter to its JAX leaf (``models.convert.jax_leaf``) and permutes the
 spec back onto the port's dims, so the tables stay the only source.
 
-The decode and serve cache specs wait for ROADMAP A9, ``expert_bank_spec``
+The decode and serve cache specs wait for ROADMAP A9b, ``expert_bank_spec``
 for A10.
 """
 
@@ -530,7 +530,7 @@ def fsdp_leaf_spec(shape: tuple, n_shard: int, axis: str = "fsdp",
 
 def tp_only(mesh, sh: Sharding) -> Sharding:
     """Project a sharding onto the 'model' (TP) axis only: the serving
-    engine's weight placement (ROADMAP A9)."""
+    engine's weight placement (ROADMAP A9b)."""
 
     def keep(ax):
         if isinstance(ax, (tuple, list)):

@@ -20,7 +20,7 @@ JAX example.
 Same flags and defaults as the JAX example, except ``--peak-tflops``. Not
 ported yet, each raising ``NotImplementedError``: ``--sp`` above 1
 (sequence parallel, ROADMAP A10), ``--generate`` on a mesh of more than one
-rank (mesh decode, A9), ``--lora-rank`` and ``--quantize-decode`` (A10),
+rank (mesh decode, A9b), ``--lora-rank`` and ``--quantize-decode`` (A10),
 ``--packed`` (A12).
 
 Usage::
@@ -82,7 +82,7 @@ def _refuse_unported(args, world: int = 1) -> None:
     refused = [
         (args.sp > 1, "--sp above 1 (sequence parallel)", "A10"),
         (bool(args.generate) and world > 1, "--generate on a mesh of more than one rank "
-         "(mesh decode)", "A9"),
+         "(mesh decode)", "A9b"),
         (bool(args.lora_rank), "--lora-rank", "A10"),
         (args.quantize_decode, "--quantize-decode", "A10"),
         (args.packed, "--packed (data/packing.py)", "A12"),

@@ -37,7 +37,7 @@ autoregressive loop over :func:`prefill` and :func:`decode_step`, and
 :func:`sample_logits` draws from a ``torch.Generator``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): decode on a device mesh (A9), MoE experts, and int8 or LoRA kernels
+item): decode on a device mesh (A9b), MoE experts, and int8 or LoRA kernels
 (``models.convert.params_from_jax`` rejects them; A10).
 """
 
@@ -583,7 +583,7 @@ class Llama(nn.Module):
                                  f"{self.cfg.num_layers}")
             if is_dtensor(self.embed):  # the params are placed together
                 raise NotImplementedError(
-                    "KV-cache decode on a device mesh is not ported yet: ROADMAP A9"
+                    "KV-cache decode on a device mesh is not ported yet: ROADMAP A9b"
                 )
         with mesh_region(tokens):
             return self._forward(tokens, positions, segment_ids, return_hidden,
@@ -701,7 +701,7 @@ def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0
     test), and the output stays (B, max_new_tokens). Without ``eos_id`` the
     loop takes max_new_tokens - 1 steps and never waits for the device.
 
-    Not ported yet: ``mesh`` (decode on a device mesh, ROADMAP A9). int8
+    Not ported yet: ``mesh`` (decode on a device mesh, ROADMAP A9b). int8
     weights (the reference's ``QuantTensor``) cannot reach a port model:
     ``models.convert.params_from_jax`` and the decode tools refuse them
     (ROADMAP A10).
@@ -727,7 +727,7 @@ def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0
             "which would silently ignore them)"
         )
     if mesh is not None:
-        raise NotImplementedError("generate on a device mesh is not ported yet: ROADMAP A9")
+        raise NotImplementedError("generate on a device mesh is not ported yet: ROADMAP A9b")
     lengths = None
     if prompt_lengths is not None:
         # host-side range check: an out-of-range length would index garbage

@@ -51,9 +51,17 @@ of (weights, prompt, seed) whatever the slot, the batchmates,
 ``decode_block`` or ``pipeline_depth``. The bits differ from the
 reference's ``jax.random`` keys; the distribution is the same.
 
+**Fleet-global prefix L2** (``prefix_l2=`` or :meth:`ContinuousBatcher.
+attach_prefix_l2`, a ``cachetier.PrefixL2``): an L1 miss probes the L2
+before prefilling; a hit is uploaded into a single-row cache, inserted
+into L1, and the prefill resumes at ``min(depth, len - 1)``. Every L1
+insert (boundary and whole-prompt) is offered to the L2; the offer
+records an event on the scheduler's stream and a filler thread copies the
+entry after it, so the scheduler never waits for the host copy. The L2
+key carries the weights version.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``mesh=`` (TP decode on 'model', A9b), ``prefix_l2`` and
-``attach_prefix_l2`` (the cachetier L2, A9b), LoRA banks and
+item: ``mesh=`` (TP decode on 'model', A9b), LoRA banks and
 ``swap_weights(kind='lora')`` (A10), and MoE or int8 weights (A10). The
 int8 and rolling KV caches are ported.
 """
@@ -511,6 +519,12 @@ def _clone_cache(cache):
     return [{n: t.clone() for n, t in layer.items()} for layer in cache]
 
 
+def _cache_leaves(cache) -> list:
+    """A cache's tensors in one fixed order (layer, then name): the
+    flat form the prefix L2 stores."""
+    return [layer[name] for layer in cache for name in sorted(layer)]
+
+
 def _bound_module(model, params: dict):
     """A copy of ``model``'s module tree, sharing every attribute but its
     parameters, which are ``params`` (name -> tensor): the module a
@@ -590,10 +604,6 @@ class ContinuousBatcher:
                 "the continuous engine on a device mesh (TP decode on 'model') is not "
                 "ported yet: ROADMAP A9b"
             )
-        if prefix_l2 is not None:
-            raise NotImplementedError(
-                "the fleet-global prefix L2 (cachetier) is not ported yet: ROADMAP A9b"
-            )
         self._model = model
         self._device = model.device
         self._cuda = self._device.type == "cuda"
@@ -663,6 +673,15 @@ class ContinuousBatcher:
             self._prefix_store = _PrefixStore(prefix_cache)
         else:
             self._prefix_store = None
+        if prefix_l2 is not None and self._prefix_store is None:
+            # The L2 feeds and is fed through the L1 insert/lookup
+            # sites; without an L1 neither exists.
+            raise ValueError("prefix_l2 requires prefix_cache")
+        # Fleet-global prefix L2 (cachetier.PrefixL2 or None). Rebound
+        # atomically by attach_prefix_l2; the scheduler thread reads it
+        # racily — a one-iteration-stale None/instance is benign (one
+        # extra miss or one extra offer to a live client).
+        self._prefix_l2 = prefix_l2
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False  # guarded-by: self._submit_lock
         # Hot weight swap: the label of the weights currently serving
@@ -1483,6 +1502,11 @@ class ContinuousBatcher:
                 if self._prefix_store is not None
                 else {}
             ),
+            **(
+                {f"prefix_{k}": v for k, v in self._prefix_l2.stats().items()}
+                if self._prefix_l2 is not None
+                else {}
+            ),
         }
 
     def close(self, drain: bool = False, drain_timeout: float = 300.0) -> None:
@@ -1527,16 +1551,55 @@ class ContinuousBatcher:
             # Drop the stored KV buffers — only once the loop thread is
             # truly gone: it reads the store without a lock.
             self._prefix_store.clear()
+        if self._prefix_l2 is not None and not self._thread.is_alive():
+            # Stop the L2 filler thread (pending offers drain or drop);
+            # the underlying client/tier belongs to the fleet, not this
+            # engine, so only the facade winds down here.
+            self._prefix_l2.close()
         if not self._thread.is_alive():
             # the slot cache goes with the loop: a closed engine that is
             # still referenced must not pin it
             self._state = None
 
     def attach_prefix_l2(self, l2) -> None:
-        """The fleet-global prefix L2 (cachetier) is not ported yet."""
-        raise NotImplementedError(
-            "the fleet-global prefix L2 (cachetier) is not ported yet: ROADMAP A9b"
-        )
+        """Attach (or detach with None) the fleet-global prefix L2 on a
+        RUNNING engine — the ServingFleet injection path for factory-
+        built replicas. The rebind is a single atomic reference swap;
+        the scheduler reads ``_prefix_l2`` racily and a one-iteration-
+        stale view is benign (one extra miss or offer)."""
+        if l2 is not None and self._prefix_store is None:
+            raise ValueError("prefix_l2 requires prefix_cache")
+        self._prefix_l2 = l2
+
+    def _l2_offer(self, tokens: list[int], cache_1, adapter) -> None:
+        """Publish one L1-inserted prefix to the fleet L2, fire-and-
+        forget: the entry is never written again, so the L2 takes its
+        tensors as they are and copies them to the host on its filler
+        thread, after an event recorded here on the scheduler's stream."""
+        l2 = self._prefix_l2
+        if l2 is None or self._warming:
+            # warmup's throwaway prompts are cleared from L1 afterwards;
+            # publishing them fleet-wide would be respawn-time junk
+            return
+        try:
+            l2.offer(tokens, _cache_leaves(cache_1), adapter, self._weights_version)
+        except Exception:  # noqa: BLE001 - a lost offer is a later miss
+            logger.warning("prefix L2 offer failed", exc_info=True)
+
+    def _l2_reconstruct(self, leaves):
+        """A single-row cache on the engine's device from L2 host
+        tensors, or None when they do not match this engine's cache (a
+        foreign config's entry — a miss; the count, dtype and shape
+        check is the exactness guard). The upload is asynchronous."""
+        template = self._cache_shapes(1)
+        flat = _cache_leaves(template)
+        if not isinstance(leaves, list) or len(leaves) != len(flat):
+            return None
+        if any(not isinstance(x, torch.Tensor) or x.dtype != want.dtype
+               or tuple(x.shape) != tuple(want.shape) for x, want in zip(leaves, flat)):
+            return None
+        placed = iter(x.to(self._device, non_blocking=x.is_pinned()) for x in leaves)
+        return [{name: next(placed) for name in sorted(layer)} for layer in template]
 
     # -- device programs -----------------------------------------------
 
@@ -1837,6 +1900,19 @@ class ContinuousBatcher:
             # overwritten by the first continuation chunk before any
             # query position can attend them.
             stored, resume = self._prefix_store.lookup(p.tokens, p.adapter)
+            if stored is None and self._prefix_l2 is not None:
+                # L1 miss → bounded-latency fleet-global probe. A hit is
+                # a prefix some OTHER replica prefilled under the SAME
+                # weights version (the version is in the key). The
+                # rebuilt cache is inserted into L1 so repeats on this
+                # replica stay on the device.
+                hit = self._prefix_l2.lookup(p.tokens, p.adapter, self._weights_version)
+                if hit is not None:
+                    rebuilt = self._l2_reconstruct(hit[0])
+                    if rebuilt is not None:
+                        depth = hit[1]
+                        stored, resume = rebuilt, min(depth, len(p.tokens) - 1)
+                        self._prefix_store.insert(p.tokens[:depth], rebuilt, p.adapter)
             if stored is not None:
                 cache_1 = _clone_cache(stored)
         if cache_1 is None:
@@ -1883,9 +1959,9 @@ class ContinuousBatcher:
                 # prefix can resume here. A copy: this job goes on
                 # writing its cache. Depths are exponentially spaced and
                 # capped at capacity//2 per request, shallowest first.
-                self._prefix_store.insert(
-                    job.p.tokens[: job.next_pos], _clone_cache(job.cache_1), job.p.adapter
-                )
+                entry = _clone_cache(job.cache_1)
+                self._prefix_store.insert(job.p.tokens[: job.next_pos], entry, job.p.adapter)
+                self._l2_offer(job.p.tokens[: job.next_pos], entry, job.p.adapter)
                 job.next_insert_depth = 2 * job.next_pos
                 job.boundary_inserts += 1
             return
@@ -1893,6 +1969,7 @@ class ContinuousBatcher:
             # The completed single-row cache covers the whole prompt; the
             # job ends here, so nothing writes it again.
             self._prefix_store.insert(job.p.tokens, job.cache_1, job.p.adapter)
+            self._l2_offer(job.p.tokens, job.cache_1, job.p.adapter)
         # final chunk: it contains the prompt's last true position
         tok_1, lp_1 = self._sample1_fn(logits, job.length - 1 - start_w, job.vals, job.gates)
         self._admit_fn(self._state, job.cache_1, job.row, tok_1, job.vals)
@@ -2299,6 +2376,12 @@ class ContinuousBatcher:
                         item = self._queue.get() if idle else self._queue.get_nowait()
                     except queue.Empty:
                         break
+                    if idle:
+                        # waiting for work is not a stall: without this
+                        # stamp (the JAX package's engine has none) an
+                        # engine idle for longer than watchdog_s fires its
+                        # watchdog on its next request
+                        self._progress_ts = time.monotonic()
                     if item is self._STOP:
                         self._drain_window("shutdown")
                         self._pending_first.clear()

@@ -21,7 +21,7 @@ Usage::
         [--config-overrides '{"num_layers": 4}'] [--device cpu] [--score]
 
 Not ported yet, each raising ``NotImplementedError``: ``--mesh`` (decode on
-a device mesh, ROADMAP A9), ``--draft-checkpoint``, the ``--draft-*``
+a device mesh, ROADMAP A9b), ``--draft-checkpoint``, the ``--draft-*``
 flags and ``--spec-k`` (speculative decoding, A10), LoRA checkpoints and ``--lora-scale``
 (A10), and int8 weight trees (A10).
 """
@@ -69,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device to decode on (default: CUDA; 'cpu' to run there)")
     p.add_argument("--mesh", default=None,
-                   help="decode sharded over a device mesh (not ported: ROADMAP A9)")
+                   help="decode sharded over a device mesh (not ported: ROADMAP A9b)")
     p.add_argument("--draft-checkpoint", default=None,
                    help="speculative decoding with a draft model (not ported: ROADMAP A10)")
     p.add_argument("--draft-model", choices=("tiny", "1b", "7b"), default=None,
@@ -83,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     refused = [
-        (args.mesh, "--mesh (decode on a device mesh)", "A9"),
+        (args.mesh, "--mesh (decode on a device mesh)", "A9b"),
         (args.draft_checkpoint, "--draft-checkpoint (speculative decoding)", "A10"),
         (args.draft_model, "--draft-model (speculative decoding)", "A10"),
         (args.draft_config_overrides, "--draft-config-overrides (speculative decoding)", "A10"),
@@ -185,14 +185,14 @@ def decode_batches(model, prompts: list[list[int]], *, batch_size: int, width: i
     completion then does not depend on how many prompts came with it).
     Returns ``(completions, generator)``, each completion trimmed at its
     first ``eos_id``; the generator (advanced) continues the stream.
-    ``mesh`` (decode on a device mesh, ROADMAP A9) is not ported yet.
+    ``mesh`` (decode on a device mesh, ROADMAP A9b) is not ported yet.
     """
     import numpy as np
 
     from tensorflowonspark_tpu_torch.models.llama import generate
 
     if mesh is not None:
-        raise NotImplementedError("decode on a device mesh is not ported yet: ROADMAP A9")
+        raise NotImplementedError("decode on a device mesh is not ported yet: ROADMAP A9b")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     if not prompts:

@@ -1,5 +1,8 @@
 """HTTP server over a Llama checkpoint of the port: the counterpart of the
-JAX package's ``tools/serve_model.py`` on one device.
+JAX package's ``tools/serve_model.py`` on one device, with one engine or a
+fleet of them (``--gen-replicas N``: N in-process engines behind the
+health-routing ``FleetRouter``, each with its own caches and scheduler
+over one shared model).
 
 stdlib-only (``http.server``), threaded, one model shared across requests.
 The model runs on CUDA unless ``--device`` (``gen["device"]``) names
@@ -7,13 +10,17 @@ another device (``--device cpu``).
 
 Endpoints::
 
-    GET  /healthz            -> liveness (200 iff the scheduler runs)
+    GET  /healthz            -> liveness (200 iff the scheduler runs;
+                                in fleet mode the body carries the
+                                per-replica split)
     GET  /readyz             -> readiness (200 iff live and not warming
                                 or draining)
     GET  /v1/models          -> single-model list (``--served-model-name``)
     GET  /metrics            -> Prometheus text-format metrics (the
                                 process registry + the continuous
-                                engine's counters/gauges/histograms)
+                                engine's counters/gauges/histograms; in
+                                fleet mode the router's merged
+                                exposition, labelled by replica)
     GET  /stats              -> scheduler JSON incl. per-phase request
                                 latency percentiles (queue/prefill/
                                 dispatch/fetch/sweep)
@@ -45,14 +52,19 @@ Usage::
     python -m tensorflowonspark_tpu_torch.tools.serve_model \\
         --llama-checkpoint ckpt/ --model 1b [--gen-engine continuous] \\
         [--gen-widths 128,256,512] [--max-new-tokens 64] [--port 8500] \\
-        [--device cpu]
+        [--device cpu] [--gen-replicas 2] [--cachetier-l2 HOST:PORT]
+
+``--cachetier-l2`` attaches a fleet-global prefix L2 (``cachetier.
+PrefixL2`` over a ``CacheClient``) to every engine; it needs
+``--gen-prefix-cache``, and a failure to attach leaves the engine on its
+L1 only. ``--cachetier-lookup-timeout`` bounds each lookup (the JAX
+package's 0.05 s by default).
 
 Not ported yet; each raises ``NotImplementedError`` at startup naming its
 ROADMAP item: ``--export-dir``, ``--batch-size`` and ``/predict`` (A12,
 ``api/export``),
 ``/admin/reload``, ``--admin-token-file`` and ``--rollout-channel`` (A9b,
-rollout), ``--gen-replicas`` > 1 (A9b, the fleet), ``--gen-mesh`` (A9b,
-mesh/TP decode), ``--cachetier-l2`` (A9b, cachetier), a draft model
+rollout), ``--gen-mesh`` (A9b, mesh/TP decode), a draft model
 (A10), LoRA banks (``--gen-lora-scale``, a request's ``adapter`` != 0;
 A10), and the SLO/history plane with ``/statusz`` (``--slo-*``,
 ``--obs-window-s``; A12). A request to ``/predict``, ``/admin/reload`` or
@@ -64,6 +76,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -91,15 +104,13 @@ def _not_ported(what: str, item: str) -> str:
 
 
 def _refuse_unported(gen: dict | None, export_dir: str | None = None) -> None:
-    """Raise NotImplementedError for every option outside the port's
-    single-device server — never accept one and then ignore it."""
+    """Raise NotImplementedError for every option the port's server does
+    not have yet — never accept one and then ignore it."""
     gen = gen or {}
     refused = [
         (export_dir is not None, *_PREDICT),
         (gen.get("admin_token") or gen.get("rollout_channel"), *_ROLLOUT),
-        (int(gen.get("replicas") or 1) > 1, "--gen-replicas > 1 (the serving fleet)", "A9b"),
         (gen.get("mesh"), "--gen-mesh (decode on a device mesh)", "A9b, mesh/TP decode"),
-        (gen.get("cachetier_l2"), "--cachetier-l2 (the prefix L2)", "A9b, cachetier"),
         (gen.get("draft_checkpoint") or gen.get("draft_model")
          or gen.get("draft_config_overrides") or gen.get("spec_k") is not None,
          "a draft model (speculative decoding)", "A10"),
@@ -116,7 +127,7 @@ class _Handler(BaseHTTPRequestHandler):
     # set by make_server():
     gen_fn: Any = None  # prompts -> completions (--gen-engine fixed)
     gen_batcher: Any = None  # _GenBatcher when --gen-batch-window > 0
-    gen_engine: Any = None  # ContinuousBatcher (--gen-engine continuous)
+    gen_engine: Any = None  # ContinuousBatcher, or a FleetRouter with --gen-replicas > 1
     gen_max_new: int = 64  # per-request decode budget in engine mode
     score_fn: Any = None  # sequences -> per-token logprobs (/score)
     model_name: str = "default"  # /v1/models id + completion envelopes
@@ -185,7 +196,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/stats":
             stats: dict = {"mode": ""}
             if self.gen_engine is not None:
-                stats.update(self.gen_engine.stats(), mode="continuous")
+                stats.update(self.gen_engine.stats(), mode=(
+                    "fleet" if getattr(self.gen_engine, "IS_FLEET", False) else "continuous"))
             elif self.gen_batcher is not None:
                 stats.update(mode="coalesced", decode_calls=self.gen_batcher.decode_calls)
             elif self.gen_fn is not None:
@@ -410,6 +422,9 @@ class _Handler(BaseHTTPRequestHandler):
             DeadlineExceeded,
             EngineOverloaded,
             EngineWedged,
+            FleetOverloaded,
+            FleetUnavailable,
+            ReplicaGone,
         )
 
         logprobs = None
@@ -440,6 +455,23 @@ class _Handler(BaseHTTPRequestHandler):
                             logprobs = [logprobs[i * n:(i + 1) * n] for i in range(len(prompts))]
                         if versions is not None:
                             versions = [versions[i * n:(i + 1) * n] for i in range(len(prompts))]
+                except FleetOverloaded as e:
+                    # router admission shed: the deadline cannot be met
+                    # from queue-depth estimates (or every queue is full)
+                    # — tell the client when to come back, and that the
+                    # number is the router's estimate
+                    self._reply(429, wire.encode("serve.error", error=str(e),
+                                                 error_type="FleetOverloaded",
+                                                 retry_after_src="router_estimate"),
+                                {"Retry-After": str(int(math.ceil(e.retry_after)))})
+                    return
+                except FleetUnavailable as e:
+                    # full-fleet drain / no ready replica
+                    self._reply(503, wire.encode("serve.error", error=str(e),
+                                                 error_type="FleetUnavailable",
+                                                 retry_after_src="static"),
+                                {"Retry-After": "2"})
+                    return
                 except EngineOverloaded as e:
                     self._reply(503, wire.encode("serve.error", error=str(e),
                                                  error_type="EngineOverloaded",
@@ -452,9 +484,11 @@ class _Handler(BaseHTTPRequestHandler):
                     self._reply(504, wire.encode("serve.error", error=str(e),
                                                  error_type="DeadlineExceeded"))
                     return
-                except EngineWedged as e:
-                    # the watchdog aborted in-flight work and the engine
-                    # keeps serving — a retryable unavailability
+                except (EngineWedged, ReplicaGone) as e:
+                    # the watchdog aborted in-flight work (or the replica
+                    # died and failover was already spent) and the
+                    # engine or fleet keeps serving — a retryable
+                    # unavailability
                     self._reply(503, wire.encode("serve.error", error=str(e),
                                                  error_type=type(e).__name__,
                                                  retry_after_src="static"),
@@ -526,7 +560,12 @@ class _Handler(BaseHTTPRequestHandler):
         [...]}`` trailer. The response is close-delimited (no
         Content-Length); a mid-stream failure surfaces as an ``{"error":
         ...}`` line since the 200 status is already on the wire."""
-        from tensorflowonspark_tpu_torch.serving import EngineOverloaded
+        from tensorflowonspark_tpu_torch.serving import (
+            EngineOverloaded,
+            FleetOverloaded,
+            FleetUnavailable,
+            ReplicaGone,
+        )
 
         try:
             gen = self.gen_engine.stream(
@@ -536,6 +575,18 @@ class _Handler(BaseHTTPRequestHandler):
                 presence_penalty=presence_penalty, logit_bias=logit_bias,
                 deadline_s=deadline_s, trace=trace,
             )
+        except FleetOverloaded as e:
+            self._reply(429, wire.encode("serve.error", error=str(e),
+                                         error_type="FleetOverloaded",
+                                         retry_after_src="router_estimate"),
+                        {"Retry-After": str(int(math.ceil(e.retry_after)))})
+            return
+        except (FleetUnavailable, ReplicaGone) as e:
+            self._reply(503, wire.encode("serve.error", error=str(e),
+                                         error_type=type(e).__name__,
+                                         retry_after_src="static"),
+                        {"Retry-After": "2"})
+            return
         except EngineOverloaded as e:
             self._reply(503, wire.encode("serve.error", error=str(e),
                                          error_type="EngineOverloaded",
@@ -801,8 +852,10 @@ def _load_model(gen: dict):
 def _build_engine(gen: dict):
     """Build the continuous-batching engine for ``--gen-engine
     continuous``: one persistent slot-based decode loop instead of the
-    fixed-batch gen_fn. Incompatible with the coalescing window — reject
-    at startup, not on the first request."""
+    fixed-batch gen_fn, or with ``replicas`` > 1 a ``ServingFleet`` of
+    such engines behind a ``FleetRouter`` (returned in the engine's
+    place: it has the engine's surface). Incompatible with the
+    coalescing window — reject at startup, not on the first request."""
     from tensorflowonspark_tpu_torch.serving import ContinuousBatcher
 
     if gen.get("batch_window"):
@@ -833,8 +886,8 @@ def _build_engine(gen: dict):
         raise ValueError(f"--gen-max-queue must be >= 1, got {max_queue}")
     # Cheap shape validation above happens BEFORE the checkpoint restore.
     model = load()
-    engine = ContinuousBatcher(
-        model,
+
+    engine_kw = dict(
         slots=int(gen.get("slots") or gen.get("batch_size", 8)),
         prompt_widths=widths,
         temperature=float(gen.get("temperature", 0.0)),
@@ -852,6 +905,50 @@ def _build_engine(gen: dict):
         pipeline_depth=2 if gen.get("pipeline_depth") is None else int(gen["pipeline_depth"]),
         watchdog_s=None if gen.get("watchdog_s") is None else float(gen["watchdog_s"]),
     )
+
+    def _new_prefix_l2():
+        # Fresh per engine (each facade owns a filler thread + client);
+        # any construction failure degrades to L1-only — the cache tier
+        # must never keep a replica from serving.
+        addr = gen.get("cachetier_l2")
+        if not addr:
+            return None
+        if not gen.get("prefix_cache"):
+            logger.warning("--cachetier-l2 needs --gen-prefix-cache; serving without the L2")
+            return None
+        try:
+            from tensorflowonspark_tpu_torch.cachetier import CacheClient, PrefixL2
+
+            return PrefixL2(CacheClient(addr), chunk=int(gen.get("prefill_chunk") or 1),
+                            lookup_timeout_s=float(gen.get("cachetier_lookup_timeout_s", 0.05)),
+                            own_client=True)
+        except Exception:  # noqa: BLE001 - L2 is optional
+            logger.warning("cachetier L2 attach failed", exc_info=True)
+            return None
+
+    def factory():
+        # One engine per call: the fleet path respawns replicas through
+        # this, so everything scheduler-stateful is built fresh here;
+        # the model (its weights) is shared read-only.
+        return ContinuousBatcher(model, **engine_kw, prefix_l2=_new_prefix_l2())
+
+    n_replicas = int(gen.get("replicas") or 1)
+    if n_replicas > 1:
+        # The fleet plane: N in-process replicas (each with its own
+        # scheduler + watchdog) behind the health-routing FleetRouter —
+        # the handler talks to the router exactly as to one engine.
+        from tensorflowonspark_tpu_torch.serving.fleet import ServingFleet
+        from tensorflowonspark_tpu_torch.serving.router import FleetRouter
+
+        t0 = time.monotonic()
+        fleet = ServingFleet(factory=factory, replicas=n_replicas,
+                             probe_interval=float(gen.get("probe_interval") or 1.0),
+                             warmup=bool(gen.get("warmup")))
+        router = FleetRouter(fleet, default_temperature=float(gen.get("temperature", 0.0)))
+        logger.info("serving fleet of %d replicas ready in %.1fs", n_replicas,
+                    time.monotonic() - t0)
+        return router, max_new, model
+    engine = factory()
     if gen.get("warmup"):
         t0 = time.monotonic()
         engine.warmup()
@@ -1062,7 +1159,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "entry holds one full-length single-row KV cache in device memory. "
                    "Requires --gen-prefill-chunk")
     p.add_argument("--cachetier-l2", default=None, metavar="HOST:PORT",
-                   help="the fleet-global prefix L2 (not ported: ROADMAP A9b)")
+                   help="continuous engine: attach the fleet-global prefix L2 at this cachetier "
+                   "daemon address (a ServingFleet in spawn mode injects it); requires "
+                   "--gen-prefix-cache. Unreachable = L1-only")
+    p.add_argument("--cachetier-lookup-timeout", type=float, default=0.05,
+                   help="bound on one prefix-L2 lookup over all its depth probes, in seconds; a "
+                   "lookup past it is a miss")
     p.add_argument("--gen-decode-block", type=int, default=8,
                    help="continuous engine: decode this many tokens per host scheduling "
                    "iteration (one fetch per block); 1 = per-token scheduling")
@@ -1074,8 +1176,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continuous engine: prefill prompts in chunks of this many tokens "
                    "interleaved with decode steps (default: whole-bucket prefill)")
     p.add_argument("--gen-replicas", type=int, default=1,
-                   help="engine replicas behind a fleet router (not ported: ROADMAP A9b); 1 = "
-                   "the single engine")
+                   help="continuous engine: run this many engine replicas (each with its own "
+                   "scheduler/watchdog) behind a health-routing fleet router — prefix-aware "
+                   "placement, failover, draining, deadline-based load shedding (429/503). 1 = "
+                   "the single engine, no router")
+    p.add_argument("--gen-probe-interval", type=float, default=1.0,
+                   help="fleet mode: replica health-probe cadence in seconds; an unhealthy "
+                   "replica flips to draining within miss_limit probes and is respawned")
     p.add_argument("--port-file", default=None,
                    help="write the actually-bound port (useful with --port 0) to this file once "
                    "the server is ready to accept requests")
@@ -1100,6 +1207,9 @@ def main(argv: list[str] | None = None) -> int:
     args = p.parse_args(argv)
     if args.export_dir is None and args.llama_checkpoint is None:
         p.error("need --llama-checkpoint")
+    if args.gen_replicas > 1 and args.gen_engine != "continuous":
+        p.error("--gen-replicas > 1 requires --gen-engine continuous (the fleet router fronts "
+                "continuous engines)")
     if args.gen_replicas < 1:
         p.error(f"--gen-replicas must be >= 1, got {args.gen_replicas}")
     if args.batch_size is not None:
@@ -1135,6 +1245,7 @@ def main(argv: list[str] | None = None) -> int:
             prefill_chunk=args.gen_prefill_chunk,
             prefix_cache=args.gen_prefix_cache,
             cachetier_l2=args.cachetier_l2,
+            cachetier_lookup_timeout_s=args.cachetier_lookup_timeout,
             decode_block=args.gen_decode_block,
             pipeline_depth=args.gen_pipeline_depth,
             watchdog_s=args.gen_watchdog,
@@ -1143,6 +1254,7 @@ def main(argv: list[str] | None = None) -> int:
             drain_on_shutdown=args.gen_drain_on_shutdown,
             served_model_name=args.served_model_name,
             replicas=args.gen_replicas,
+            probe_interval=args.gen_probe_interval,
             admin_token=args.admin_token_file,
             rollout_channel=args.rollout_channel,
             slo_ttft_s=args.slo_ttft_s,

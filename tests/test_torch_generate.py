@@ -197,7 +197,7 @@ VALIDATIONS = [
     (dict(prompt_lengths=np.array([8, 8])), ValueError, "prompt_lengths must have shape"),
     (dict(prompt_lengths=np.array([8, 0, 3])), ValueError, r"prompt_lengths must be in \[1, 8\]"),
     (dict(prompt_lengths=np.array([9, 1, 3])), ValueError, r"prompt_lengths must be in \[1, 8\]"),
-    (dict(mesh=object()), NotImplementedError, "ROADMAP A9"),
+    (dict(mesh=object()), NotImplementedError, "ROADMAP A9b"),
 ]
 
 

@@ -132,7 +132,7 @@ def test_cli_runs_as_a_module(tmp_path, weights):
 
 
 UNPORTED = [
-    (["--mesh", "data=2"], "ROADMAP A9"),
+    (["--mesh", "data=2"], "ROADMAP A9b"),
     (["--draft-checkpoint", "draft/"], "ROADMAP A10"),
     (["--draft-model", "tiny"], "ROADMAP A10"),
     (["--draft-config-overrides", "{}"], "ROADMAP A10"),
@@ -195,7 +195,7 @@ def test_decode_prompt_errors(weights, rows, match):
     model = tgen.load_model(cfg, weights[2], "cpu")
     with pytest.raises(tgen.PromptError, match=match):
         tgen.decode_batches(model, rows, batch_size=2, width=8, max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         tgen.decode_batches(model, [[1]], batch_size=2, width=8, max_new_tokens=2,
                             mesh=object())
 
@@ -236,7 +236,7 @@ def test_example_refuses_generate_on_a_wider_mesh():
 
     args = llama_fsdp.parse_args(["--cpu", "--generate", "4"])
     llama_fsdp._refuse_unported(args, world=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         llama_fsdp._refuse_unported(args, world=2)
     for flags in (["--quantize-decode"], ["--lora-rank", "4"]):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):

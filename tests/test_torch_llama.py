@@ -259,7 +259,7 @@ def test_unported_features_raise():
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.Llama(dataclasses.replace(tcfg, remat=True, remat_policy="offload"), device="cpu")
     model = tllama.Llama(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
         tllama.generate(model, torch.zeros(1, 4, dtype=torch.long), 2, mesh=object())
     from tensorflowonspark_tpu_torch.ops.attention import dot_product_attention
 

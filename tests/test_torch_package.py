@@ -66,6 +66,9 @@ def test_import_leaves_jax_out():
         "import tensorflowonspark_tpu_torch.tools.generate_text\n"
         "import tensorflowonspark_tpu_torch.serving.engine, tensorflowonspark_tpu_torch.serving\n"
         "import tensorflowonspark_tpu_torch.tools.serve_model\n"
+        "import tensorflowonspark_tpu_torch.serving.fleet, tensorflowonspark_tpu_torch.serving.router\n"
+        "import tensorflowonspark_tpu_torch.cachetier, tensorflowonspark_tpu_torch.cachetier.prefix\n"
+        "import tensorflowonspark_tpu_torch.cachetier.service, tensorflowonspark_tpu_torch.cachetier.frames\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -401,6 +404,35 @@ def test_chip_smoke_serve_phase_rehearses_on_cpu(capsys):
     assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
 
 
+def test_chip_smoke_fleet_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase fleet runs on the CPU at a tiny size: every check
+    of (a)-(e) passes — the in-process fleet against one engine, the L2
+    across replicas, the filler's ordering and the cache server's close
+    race, a dropped dispatch and a wedged replica under traffic, the
+    subprocess fleet with its daemon (a child and the daemon SIGKILLed and
+    respawned) and the server with two replicas and the daemon L2 — and no
+    kernel is launched."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    launches = smoke.phase_fleet(fa, layers=2, rehearse={"device": "cpu", "tiny": True, "sizes": {
+        "requests": 5, "sampled": 2, "threads": 3, "min_len": 4, "max_len": 30, "min_new": 4,
+        "max_new": 12, "sampled_new": (4, 8), "widths": (8, 16, 32), "slots": 3, "block": 4,
+        "stagger": 0.01, "alone": 2, "alone_new": 24, "chunk": 8, "prefix": 4,
+        "budget": 24, "l2_prompt": 24, "l2_tail": 4,
+        "l2_new": 6, "wedge_s": 5.0, "watchdog_s": 2.0, "probe_s": 0.2, "drain_s": 20.0,
+        "spawn_wait_s": 120.0, "ready_wait_s": 120.0, "server_requests": 2, "post_kill": 2}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "fleet_checks" and check["ok"]
+    assert sorted(check["checks"]) == ["a_inproc", "b_l2", "c_failover", "close_race", "d_spawn",
+                                       "e_server", "l2_filler_ordering", "l2_syncs"]
+    assert check["err"]["b_l2"]["replica1_l2_hits"] >= 1
+    assert check["err"]["d_spawn"]["daemon"]["respawns"] >= 1
+    assert lines[-2]["part"] == "numbers"
+    assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
@@ -410,7 +442,9 @@ FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_
           "heartbeat_ignores_epoch", "elastic_plain_attention", "decode_slot_mask_strict",
           "rolling_pos_init_zero", "int8_drop_v_scale", "first_token_padded_position",
           "eos_not_sticky", "qk_logits_bf16", "admit_wrong_slot", "decode_row0_pos_frozen",
-          "block_surplus_emitted", "penalty_after_temperature", "sample_counter_is_step"]
+          "block_surplus_emitted", "penalty_after_temperature", "sample_counter_is_step",
+          "router_no_failover_before_first_token", "l2_key_without_version",
+          "l2_filler_before_event", "cache_close_leaves_conns_open"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)

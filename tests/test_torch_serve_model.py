@@ -7,9 +7,10 @@ moved by ``params_from_jax``. ``/generate`` (the fixed path and the
 continuous engine, plain and streamed), ``/v1/completions`` and ``/score``
 must return the same token ids, and logprobs and scores within 1e-4.
 ``/healthz``, ``/readyz``, ``/metrics`` and ``/stats`` answer. Every
-option outside the port's single-device server raises
+option the port's server does not have yet raises
 ``NotImplementedError`` at startup naming its ROADMAP item, and its
-request paths answer 501 with the same message.
+request paths answer 501 with the same message (the fleet and the prefix
+L2 are held in ``tests/test_torch_fleet.py``).
 """
 
 import contextlib
@@ -150,14 +151,14 @@ def test_server_answers_as_the_jax_server_does(engine, checkpoints):
 REFUSED = {
     "rollout_channel": (dict(rollout_channel="/nonexistent"), "A9b, rollout"),
     "admin_token": (dict(admin_token="secret"), "A9b, rollout"),
-    "replicas": (dict(replicas=2), "A9b"),
     "mesh": (dict(mesh="model=2"), "A9b, mesh/TP decode"),
-    "cachetier_l2": (dict(cachetier_l2="127.0.0.1:1"), "A9b, cachetier"),
     "draft_checkpoint": (dict(draft_checkpoint="/nonexistent"), "A10"),
     "spec_k": (dict(spec_k=4), "A10"),
+    "draft_model": (dict(draft_model="tiny"), "A10"),
     "lora_scale": (dict(lora_scale=1.0), "A10"),
     "slo_ttft_s": (dict(slo_ttft_s=2.5), "A12"),
     "obs_window_s": (dict(obs_window_s=5.0), "A12"),
+    "slo_error_budget": (dict(slo_error_budget=0.01), "A12"),
 }
 
 
@@ -172,9 +173,9 @@ def test_unported_options_raise_naming_their_roadmap_item(name, checkpoints):
 def test_export_dir_and_cli_flags_are_refused(checkpoints):
     with pytest.raises(NotImplementedError, match="ROADMAP A12, api/export"):
         tserve.make_server("/nonexistent", port=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b, mesh/TP decode"):
         tserve.main(["--llama-checkpoint", checkpoints[1], "--device", "cpu",
-                     "--gen-replicas", "2"])
+                     "--gen-mesh", "model=2"])
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         tserve.main(["--llama-checkpoint", checkpoints[1], "--device", "cpu",
                      "--draft-checkpoint", checkpoints[1]])

@@ -473,12 +473,12 @@ def test_unported_options_raise_naming_their_roadmap_item(jparams):
     model = _tmodel("dense", jparams)
     with pytest.raises(NotImplementedError, match="A9b"):
         ContinuousBatcher(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ContinuousBatcher(model, prefix_l2=object())
+    # the prefix L2 is ported: it needs the L1 it feeds and is fed by
+    with pytest.raises(ValueError, match="prefix_l2 requires prefix_cache"):
+        ContinuousBatcher(model, prompt_widths=(8,), prefix_l2=object())
     eng = ContinuousBatcher(model, slots=1, prompt_widths=(8,), prefill_chunk=4, prefix_cache=1)
     try:
-        with pytest.raises(NotImplementedError, match="A9b"):
-            eng.attach_prefix_l2(object())
+        eng.attach_prefix_l2(None)
         with pytest.raises(NotImplementedError, match="A10"):
             eng.swap_weights({}, version="x", kind="lora")
         int8 = {n: {"q": t, "scale": t} for n, t in model.named_parameters()}
