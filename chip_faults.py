@@ -83,16 +83,19 @@ ENGINE = Path("tensorflowonspark_tpu_torch/serving/engine.py")
 ROUTER = Path("tensorflowonspark_tpu_torch/serving/router.py")
 PREFIX_L2 = Path("tensorflowonspark_tpu_torch/cachetier/prefix.py")
 CACHE_SERVICE = Path("tensorflowonspark_tpu_torch/cachetier/service.py")
+ROLLOUT = Path("tensorflowonspark_tpu_torch/serving/rollout.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
 DECODE_CHECK = "phase_decode(fa, layers=4)"
 SERVE_CHECK = "phase_serve(fa, layers=4)"
 FLEET_CHECK = 'phase_fleet(fa, layers=4, parts="bc")'
+ROLLOUT_CHECK = 'phase_rollout(fa, layers=4, parts="ab")'
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
           CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
           ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK, ENGINE: SERVE_CHECK,
-          ROUTER: FLEET_CHECK, PREFIX_L2: FLEET_CHECK, CACHE_SERVICE: FLEET_CHECK}
+          ROUTER: FLEET_CHECK, PREFIX_L2: FLEET_CHECK, CACHE_SERVICE: FLEET_CHECK,
+          ROLLOUT: ROLLOUT_CHECK}
 # faults whose check is not their source's
 FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
                 "elastic_plain_attention": ELASTIC_CHECK}
@@ -339,7 +342,38 @@ FAULTS = {
         "conns, self._conns = list(self._conns), set()",
         "conns, self._conns = [], self._conns",
     ),
+    # the checkpoint loader writes the restored weights into the running
+    # tensors it was given (a target restore in place)
+    "loader_writes_running_tensors": (
+        ROLLOUT,
+        "out[name] = got.to(want.dtype) if got.is_floating_point() else got",
+        "out[name] = want.detach().copy_(got) if got.is_floating_point() else got",
+    ),
+    # publish keeps the caller's params by reference, no snapshot
+    "publish_keeps_reference": (
+        ROLLOUT,
+        "params = _ByReference(_snapshot(params, self._serving_dtype()))",
+        "params = _ByReference(params)",
+    ),
+    # a rollback releases a swapped seat without re-installing its prior
+    "rollback_skips_restore": (
+        ROLLOUT,
+        'self._apply(view["handle"], prior)',
+        "pass",
+    ),
+    # read_latest takes a pointer whose CRC does not match its manifest
+    "latest_crc_unchecked": (
+        ROLLOUT,
+        'if int(doc["crc"]) != zlib.crc32(_manifest_body(raw_manifest)):',
+        "if False:",
+    ),
 }
+# the check of phase rollout that must refuse each of its faults (its JSON
+# line names every check it failed)
+NAMED_CHECKS = {"loader_writes_running_tensors": "b3_verify_seat1",
+                "publish_keeps_reference": "b5_publish_snapshot",
+                "rollback_skips_restore": "b3_verify_seat1",
+                "latest_crc_unchecked": "b4_torn_latest"}
 
 
 def check_of(name: str) -> str:
@@ -383,25 +417,35 @@ def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Pope
 # checks whose children run after the others, in this order: check ->
 # (label, how many children at once)
 LATER = {DECODE_CHECK: ("decode", 7), SERVE_CHECK: ("serve", 6), FLEET_CHECK: ("fleet", 5),
+         ROLLOUT_CHECK: ("rollout", 3),
          ELASTIC_CHECK: ("elastic", 3)}
 
 
-def jobs() -> list[tuple[list, int]]:
+def jobs(only: list[str] | None = None) -> list[tuple[list, int]]:
     """Stages of (label, fault, checks) children, each with how many run at
-    once: every check but those of LATER at once, then each of LATER's."""
-    every = list(dict.fromkeys([*CHECKS.values(), *FAULT_CHECKS.values()]))
+    once: every check but those of LATER at once, then each of LATER's.
+    ``only`` (fault names) keeps those faults and the unchanged copy's runs
+    of their checks."""
+    names = list(FAULTS) if only is None else list(only)
+    needed = {check_of(n) for n in names} if only is not None else None
+    every = [c for c in dict.fromkeys([*CHECKS.values(), *FAULT_CHECKS.values()])
+             if needed is None or c in needed]
     first = [("none", "none", [c for c in every if c not in LATER])]
-    later = {check: [(f"none:{label}", "none", [check])] for check, (label, _) in LATER.items()}
-    for name in FAULTS:
+    later = {check: [(f"none:{label}", "none", [check])] for check, (label, _) in LATER.items()
+             if check in every}
+    for name in names:
         check = check_of(name)
         (later[check] if check in LATER else first).append((name, name, [check]))
-    return [(first, len(first))] + [(later[c], n) for c, (_, n) in LATER.items()]
+    if not first[0][2]:
+        first = first[1:]
+    stages = [(first, len(first))] if first else []
+    return stages + [(later[c], n) for c, (_, n) in LATER.items() if c in later]
 
 
-def run_all(workdir: Path) -> dict:
+def run_all(workdir: Path, only: list[str] | None = None) -> dict:
     """Every child's (return code, output), by label."""
     done = {}
-    for stage, at_once in jobs():
+    for stage, at_once in jobs(only):
         for i in range(0, len(stage), at_once):
             procs = [(label, start(label, name, checks, workdir))
                      for label, name, checks in stage[i:i + at_once]]
@@ -418,15 +462,20 @@ def check_line(output: str) -> dict | None:
     return None
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    """``argv``: fault names to plant (every fault when empty)."""
     import torch
 
+    unknown = [name for name in argv if name not in FAULTS]
+    if unknown:
+        print(f"chip_faults: unknown faults {unknown}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_faults: no CUDA device", file=sys.stderr)
         return 1
     good = True
     with tempfile.TemporaryDirectory() as tmp:
-        results = run_all(Path(tmp))
+        results = run_all(Path(tmp), argv or None)
     for label, (rc, out) in results.items():
         line = check_line(out)
         unchanged = label.startswith("none")
@@ -436,13 +485,16 @@ def main() -> int:
         if line is None:
             good = False
             continue
-        good &= passed if unchanged else not passed
+        failed = sorted(k for k, v in line.get("checks", {}).items() if not v)
+        named = NAMED_CHECKS.get(label)
+        good &= passed if unchanged else not passed and (named is None or named in failed)
+        err = line["err"] if named is None else line["err"].get("b_rollback", {}).get(named)
         print(json.dumps({"fault": label, "passed_check": passed, "case": line["case"],
-                          "err": line["err"], "lse_err": line.get("lse_err"),
-                          "tol": line["tol"]}), flush=True)
+                          "failed_checks": failed, "named_check": named, "err": err,
+                          "lse_err": line.get("lse_err"), "tol": line["tol"]}), flush=True)
     print(json.dumps({"ok": good}))
     return 0 if good else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

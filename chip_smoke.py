@@ -134,8 +134,10 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    ``save_checkpoint`` wrote of those weights, against the in-process
    ``decode_batches`` and scorer.
 11. serve — the continuous-batching engine and the HTTP server on phase
-   decode's model (``LlamaConfig.llama_1b``, not cut, bf16 weights from
-   seed 0, 1024 cache slots; limits in ``SERVE_TOL``), the engine at 8
+   decode's model (``LlamaConfig.llama_1b`` at full width, its depth cut
+   to ``SERVING_DEPTH`` = 8 layers when the whole script runs, bf16
+   weights from seed 0, 1024 cache slots; limits in ``SERVE_TOL``), the
+   engine at 8
    slots, prompt widths 128/256/512, decode_block 8, pipeline_depth 2:
    (sampler) ``_sample_rows`` on the card against its plain version in
    fp64 (penalties, logit_bias, top-k, top-p, min_p; tokens equal);
@@ -155,8 +157,8 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    sync-debug warnings per block, device busy and idle over two profiled
    blocks; (d) ``serve_model.make_server`` in process at budget 256:
    concurrent ``/generate`` equal to the engine's, a streamed
-   ``/generate``, ``/v1/completions``, ``/score`` (width 769, 16 B1
-   launches a call, against the plain attention), ``/metrics``,
+   ``/generate``, ``/v1/completions``, ``/score`` (width 769, one B1
+   launch a layer a call, against the plain attention), ``/metrics``,
    ``/stats``, then
    ``--gen-engine fixed`` against ``decode_batches``; (e) ``python -m
    tensorflowonspark_tpu_torch.tools.serve_model`` as a process on the
@@ -191,8 +193,46 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    serves, the daemon respawns on its port); (e) ``serve_model`` in
    process with ``replicas=2`` and ``cachetier_l2`` at a daemon:
    ``/generate`` equal to the engine's, ``/healthz`` per replica,
-   ``/metrics`` with both replica labels, ``/score`` at width 769 with 16
-   B1 launches. Peak device memory, ``wall_s``, each part's seconds.
+   ``/metrics`` with both replica labels, ``/score`` at width 769 with one
+   B1 launch a layer. Peak device memory, ``wall_s``, each part's seconds.
+13. rollout — zero-downtime weight rollout (``serving/rollout.py``) on
+   phase fleet's engine settings, limits in ``ROLLOUT_TOL``: (a) the
+   port's train step trains llama_1b from the seed-0 weights (fp32 params,
+   ``adamw(1e-3, moment_dtype=bf16)``, batch 4, seq 1024, 3 steps, B1–B3
+   counted) and ``CheckpointManager`` saves its ``TrainState``;
+   ``publish_checkpoint`` points a channel at the step, and a
+   ``RolloutController`` watching it (``checkpoint_loader``) rolls it
+   across an in-process ``ServingFleet`` of two bf16 engines with a 1 GiB
+   in-process L2 while 16 greedy requests stream from 4 threads, again
+   and again until the roll completed: every request resolves, stamped v0
+   or v1, each against a fresh engine of its version by the confident-token
+   rule; ≥ 1 of 8 prompts decodes otherwise under v1; the gauge at v1's
+   ordinal on both seats, one ``rollout_total{completed}``; after the roll
+   a 384-token prefix hits the L2 across seats, equal to a miss, and no hit
+   is of v0. Per-seat drain, load, install and warm-up seconds, the roll's
+   wall seconds, TTFT p50 before and during it. (b) Rollbacks, each
+   leaving every seat at v1 with exactly v1's tokens on the prompts whose
+   tokens v0 and v1 part on: a checkpoint with one leaf's shape cut
+   (``publish_params``), a committed checkpoint whose ``state.pt`` is cut
+   short, v0 by path loaded against seat 0's running tensors with seat 1's
+   verification raising (``rollout.verify``) after seat 0 swapped, a torn
+   ``LATEST`` (CRC mismatch) that must be ignored; then ``publish`` of the
+   trainer's live params, one more train step in place and seat 0
+   respawned: the re-synced seat's weights equal seat 1's, the snapshot.
+   (c) ``serve_model.main`` on a thread of this process (its ``/score``
+   launches are counted) with ``--gen-replicas 2 --admin-token-file
+   --rollout-channel``: ``/admin/reload`` 403 without the token, with a
+   wrong one and with the file's path, 202 with it and completed in
+   ``/stats``; a channel publish of the trained step rolls both replicas;
+   ``/generate`` stamped v1 and equal to a fresh v1 engine; ``/score`` at
+   width 769 with 16 B1 launches, equal to a fresh scoring under v1; a
+   single-engine server answers 409 on a checkpoint that does not fit.
+   (d) Two ``serve_model`` children (4 layers) with the fleet's
+   ``TFOS_ADMIN_TOKEN`` roll through ``SubprocessReplica.reload`` under
+   streaming load; once seat 0 swapped, child 1 is SIGKILLed and skipped,
+   and its respawn rejoins at the target version: no request lost, the
+   children against a 4-layer engine of v1. Peak device memory per part,
+   ``wall_s``, each part's seconds.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
@@ -200,7 +240,8 @@ sum over its 53 BatchNorm layers; ``mesh_launches`` counts phase mesh's
 timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
 ``score_launches`` phase decode's scoring call, ``serve_launches`` the
 ``/score`` call of phase serve's server, ``fleet_launches`` that of phase
-fleet's server),
+fleet's server, ``rollout_launches`` phase rollout's trainer steps and
+its server's ``/score``),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -2457,6 +2498,7 @@ def phase_decode(fa, layers=16, rehearse=None, seed=0):
 
 
 # phase serve: sizes (a CPU rehearsal passes smaller ones)
+SERVING_DEPTH = 8  # layers of llama_1b in phases serve and fleet when the whole script runs
 SERVE = dict(requests=24, sampled=8, threads=8, min_len=16, max_len=500, min_new=16, max_new=256,
              sampled_new=(16, 64), widths=(128, 256, 512), slots=8, block=8, depth=2,
              stagger=0.05, alone=3, alone_new=48, chunk=128, prefix=4, system=256, chunk_new=64,
@@ -3821,6 +3863,872 @@ def phase_fleet(fa, layers=16, rehearse=None, seed=0, parts="abcde"):
     return launches
 
 
+ROLLOUT = dict(train_batch=4, train_seq=1024, train_steps=3, lr=1e-3, roll_requests=16,
+               roll_threads=4, roll_new=48, fixed=8, fixed_len=(32, 200), fixed_new=32, probe=4,
+               poll_s=0.2, verify_s=300.0, torn_wait_s=3.0, roll_wait_s=600.0,
+               spawn_layers=4, truncate_bytes=1 << 24, score_rows=4)
+# Phase rollout's trainer: a learning rate high enough that a few AdamW steps
+# change the greedy tokens of the seed-0 weights (each step moves a weight by
+# up to ~lr, against an init spread of ~0.02). Its limits are phase serve's:
+# completions against a fresh engine on the same weights by the confident-
+# token rule, /score against a fresh scoring within SERVE_TOL["score"].
+ROLLOUT_TOL = dict(logits=SERVE_TOL["logits"], logprob=SERVE_TOL["logprob"],
+                   score=SERVE_TOL["score"])
+
+
+class LaunchWindows:
+    """The kernels' launches summed over the windows of the main path only
+    (the trainer's steps, the server's ``/score``): each window zeroes the
+    counts before it and reads them after it."""
+
+    def __init__(self, fa, bn, cuda):
+        self.fa, self.bn, self.cuda = fa, bn, cuda
+        self.total = {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+    def __enter__(self):
+        sync_on(self.cuda)
+        self.fa.reset_launches()
+        self.bn.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        sync_on(self.cuda)
+        for k, v in {**self.fa.LAUNCHES, **self.bn.LAUNCHES}.items():
+            self.total[k] += v
+
+
+class SwapTimer:
+    """Per-seat timestamps of a rolling swap on an in-process fleet: the
+    hold, the loader's start and end, ``swap_weights`` (the install) and
+    the warm-up probe's end, the release. Wraps the fleet's and the seat
+    engines' methods on their instances; the loader calls :meth:`load`."""
+
+    def __init__(self, fleet):
+        self.marks = []  # (rid or None, what, time)
+        for v in fleet.views():
+            eng = v["handle"].engine
+            self._wrap(eng, "swap_weights", v["rid"])
+            self._wrap(eng, "submit", v["rid"])
+        self._wrap(fleet, "hold_seat", None)
+        self._wrap(fleet, "release_seat", None)
+
+    def _wrap(self, obj, name, rid):
+        inner = getattr(obj, name)
+
+        def timed(*a, **kw):
+            who = a[0] if rid is None else rid
+            self.marks.append((who, name + ":start", time.perf_counter()))
+            try:
+                return inner(*a, **kw)
+            finally:
+                self.marks.append((who, name + ":end", time.perf_counter()))
+
+        setattr(obj, name, timed)
+
+    def load(self, fn, update):
+        self.marks.append((None, "load:start", time.perf_counter()))
+        try:
+            return fn(update)
+        finally:
+            self.marks.append((None, "load:end", time.perf_counter()))
+
+    def seats(self, since=0.0):
+        """{rid: {drain_s, load_s, install_s, warmup_s, verify_s, swap_s}} of
+        the swaps after ``since``: a seat's segment runs from its hold to its
+        release, the loads between them are its own."""
+        out, open_seat = {}, None
+        t = {}
+        for who, what, ts in self.marks:
+            if ts < since:
+                continue
+            if what == "hold_seat:end":
+                open_seat, t = who, {"hold": ts}
+            elif open_seat is None:
+                continue
+            elif what in ("load:start", "load:end") or (who == open_seat and what in (
+                    "swap_weights:start", "swap_weights:end", "submit:end")):
+                t.setdefault(what, ts)
+            elif what == "release_seat:start" and who == open_seat:
+                t["release"] = ts
+                if "swap_weights:end" in t:
+                    ls, le = t.get("load:start", t["swap_weights:start"]), t.get(
+                        "load:end", t["swap_weights:start"])
+                    warm = t.get("submit:end", t["swap_weights:end"])
+                    out[open_seat] = {"drain_s": ls - t["hold"], "load_s": le - ls,
+                                      "install_s": t["swap_weights:end"] - t["swap_weights:start"],
+                                      "warmup_s": warm - t["swap_weights:end"],
+                                      "verify_s": ts - warm, "swap_s": ts - ls}
+                open_seat = None
+        return out
+
+
+def version_traffic(target, reqs, threads, until=None, started=None):
+    """Every request of ``reqs`` as a greedy stream through ``target`` from
+    ``threads`` threads; with ``until`` (an Event) each thread cycles
+    through its share again and again until it is set. Returns the
+    outcomes {(round, i): ("ok", tokens, logprobs, ttft_s, weights_version)
+    or ("err", type, message, tokens yielded, None)}, the wall seconds and
+    whether every thread ended."""
+    out, opened, lock = {}, [0], threading.Lock()
+
+    def worker(t):
+        rnd = 0
+        while True:
+            for i in range(t, len(reqs), threads):
+                n, t0, first = 0, time.perf_counter(), None
+                try:
+                    s = target.stream(yield_logprobs=True, **reqs[i])
+                    with lock:
+                        opened[0] += 1
+                        if started is not None and opened[0] >= threads:
+                            started.set()
+                    for _ in s:
+                        n += 1
+                        if first is None:
+                            first = time.perf_counter() - t0
+                    out[(rnd, i)] = ("ok", s.result, s.logprobs, first, s.weights_version)
+                except Exception as e:  # noqa: BLE001 - an outcome of its own
+                    out[(rnd, i)] = ("err", type(e).__name__, str(e)[:200], n, None)
+            rnd += 1
+            if until is None or until.is_set():
+                return
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    return out, time.perf_counter() - t0, not any(t.is_alive() for t in ts)
+
+
+def by_version(model_of, reqs, got, want, tol):
+    """The stamped completions ``got`` ({(round, i): outcome}) against the
+    fresh engine of their own version (``want[version]``,
+    ``model_of[version]``) by the confident-token rule, round by round;
+    stamps outside ``want`` are listed as strays."""
+    rows, stray = {}, []
+    for (rnd, i), o in got.items():
+        if o[0] != "ok":
+            continue
+        if o[4] not in want:
+            stray.append(o[4])
+            continue
+        rows.setdefault((o[4], rnd), {})[i] = ("ok", o[1], o[2], o[3])
+    res = {"stray_versions": stray}
+    for (ver, _), keyed in sorted(rows.items()):
+        cmp_ = against_engine(model_of[ver], reqs, sorted(keyed), keyed, want[ver], tol)
+        r = res.setdefault(ver, {"compared": 0, "confident_mismatches": 0, "equal": 0,
+                                 "max_abs_logprob": 0.0})
+        for k in ("compared", "confident_mismatches", "equal"):
+            r[k] += cmp_[k]
+        r["max_abs_logprob"] = max(r["max_abs_logprob"], cmp_["max_abs_logprob"])
+    return res
+
+
+def gauge_of(text, name):
+    """{labels: value} of metric ``name`` in a Prometheus exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            labels, val = line[len(name):].rsplit(" ", 1)
+            out[labels] = float(val)
+    return out
+
+
+def wait_outcome(ctl, outcome, count, timeout):
+    """Seconds until ``ctl`` has counted ``count`` rollouts of ``outcome``
+    (None past ``timeout``)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if ctl.stats()["outcomes"].get(outcome, 0) >= count:
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    return None
+
+
+def truncated_copy(src, dst, nbytes):
+    """A committed checkpoint directory at ``dst`` whose ``state.pt`` is the
+    first ``nbytes`` of ``src``'s (its spec and marker whole)."""
+    os.makedirs(dst)
+    for name in ("tree.json", "_CHECKPOINT_METADATA"):
+        shutil.copy(os.path.join(src, name), dst)
+    with open(os.path.join(src, "state.pt"), "rb") as f, \
+            open(os.path.join(dst, "state.pt"), "wb") as g:
+        g.write(f.read(nbytes))
+    return dst
+
+
+def torn_latest(channel, version, path):
+    """A ``LATEST`` pointer whose CRC does not match its manifest (a torn
+    write across a non-atomic filesystem)."""
+    manifest = {"version": version, "kind": "full", "path": os.path.abspath(path), "step": None}
+    with open(os.path.join(channel, "LATEST"), "w") as f:
+        json.dump({"crc": 12345, "manifest": manifest}, f)
+
+
+def rollout_server_checks(c, cfg, preset, model_flag, device, tmp, boot, v1_path, v1_step, cut,
+                          model_v1, fixed, fixed_v1, windows, tol):
+    """Part (c): ``serve_model.main`` (the CLI entry, on a thread of this
+    process so its ``/score`` launches are counted) with two replicas, an
+    admin token file and a watched channel; then a single-engine server
+    for the 409. Returns the readings with ``ok``."""
+    import logging
+    import secrets
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.serving import rollout
+    from tensorflowonspark_tpu_torch.tools import serve_model
+    from tensorflowonspark_tpu_torch.tools.generate_text import build_score_fn
+
+    root = logging.getLogger()
+    if not root.handlers:  # keep main()'s basicConfig from logging every request
+        root.addHandler(logging.NullHandler())
+    token = secrets.token_hex(8)
+    token_file = os.path.join(tmp, "admin.token")
+    with open(token_file, "w") as f:
+        f.write(token + "\n")
+    ch = os.path.join(tmp, "server-channel")
+    port_file = os.path.join(tmp, "server.port")
+    argv = ["--llama-checkpoint", boot, "--model", model_flag,
+            "--config-overrides", cli_overrides(cfg, preset), "--gen-engine", "continuous",
+            "--gen-replicas", str(c["replicas"]), "--gen-widths", ",".join(map(str, c["widths"])),
+            "--gen-slots", str(c["slots"]), "--gen-batch-size", str(c["slots"]),
+            "--max-new-tokens", str(c["budget"]), "--gen-decode-block", str(c["block"]),
+            "--gen-prefill-chunk", str(c["chunk"]), "--gen-prefix-cache", str(c["prefix"]),
+            "--gen-warmup", "--gen-probe-interval", str(c["probe_s"]),
+            "--admin-token-file", token_file, "--rollout-channel", ch,
+            "--rollout-poll", str(c["poll_s"]), "--port", "0", "--port-file", port_file]
+    if device.type == "cpu":
+        argv += ["--device", "cpu"]
+    d, t0 = {}, time.perf_counter()
+    thread = threading.Thread(target=serve_model.main, args=(argv,), daemon=True)
+    thread.start()
+    while not os.path.exists(port_file) and thread.is_alive() and \
+            time.perf_counter() - t0 < c["spawn_wait_s"]:
+        time.sleep(0.1)
+    if not os.path.exists(port_file):
+        return {"ok": False, "error": "the server did not start"}
+    d["start_s"] = time.perf_counter() - t0
+    with open(port_file) as f:
+        url = f"http://127.0.0.1:{int(f.read())}"
+
+    def reload(body, headers):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(url + "/admin/reload", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json", **headers})
+        try:
+            with urllib.request.urlopen(req, timeout=900) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    def rollout_stats():
+        return json.loads(http(url, "/stats")[1])["rollout"]
+
+    def until(pred, timeout):
+        t1 = time.perf_counter()
+        while time.perf_counter() - t1 < timeout:
+            if pred():
+                return time.perf_counter() - t1
+            time.sleep(0.1)
+        return None
+
+    try:
+        body = {"version": "v0-reload", "path": boot}
+        d["codes"] = {"no_token": reload(body, {}),
+                      "wrong_token": reload(body, {"Authorization": "Bearer " + token[::-1]}),
+                      "file_path_as_token": reload(body, {"X-Admin-Token": token_file}),
+                      "token": reload(body, {"Authorization": "Bearer " + token})}
+        d["reload_s"] = until(lambda: rollout_stats()["outcomes"].get("completed", 0) >= 1,
+                              c["roll_wait_s"])
+        d["after_reload"] = rollout_stats()
+        t1 = time.perf_counter()
+        rollout.publish_checkpoint(ch, version="v1", path=v1_path, step=v1_step)
+        d["channel_s"] = until(lambda: rollout_stats()["applied"] == {
+            str(r): "v1" for r in range(c["replicas"])}, c["roll_wait_s"])
+        d["channel_wall_s"] = time.perf_counter() - t1
+        st = rollout_stats()
+        d["after_channel"] = st
+        code, text = http(url, "/generate", {"prompts": fixed[:2], "versions": True,
+                                             "max_new_tokens": c["fixed_new"]})
+        out = json.loads(text) if code == 200 else {}
+        d["generate"] = {"code": code, "versions": out.get("weights_versions"),
+                         "equal_v1": out.get("completions") == fixed_v1[:2]}
+        metrics = http(url, "/metrics")[1]
+        d["metrics"] = {"weights_version": gauge_of(metrics, "fleet_weights_version"),
+                        "rollout_total": gauge_of(metrics, "rollout_total")}
+        width = serve_model.score_width(max(c["widths"]), c["budget"], cfg.max_seq_len)
+        rows = [p + t for p, t in zip(fixed[:c["score_rows"]], fixed_v1)]
+        with windows:
+            code_sc, text_sc = http(url, "/score", {"sequences": rows})
+            got = {**fa.LAUNCHES}
+        d["score"] = {"code": code_sc, "width": width, "launches": got}
+        if code_sc == 200:
+            lp = json.loads(text_sc)["logprobs"]
+            ref = build_score_fn(model_v1, width=width, bsz=c["slots"])(rows)
+            d["score"]["max_abs_diff"] = max(abs(a - b) for x, y in zip(lp, ref)
+                                             for a, b in zip(x, y))
+    finally:
+        server = serve_model._last_server
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        thread.join(timeout=120)
+    d["stopped"] = not thread.is_alive()
+    # the single-engine server: a checkpoint that does not fit is a 409
+    gen = dict(checkpoint=boot, model=model_flag, device=device.type,
+               config_overrides=cli_overrides(cfg, preset), engine="continuous",
+               widths=",".join(map(str, c["widths"])), width=c["widths"][-1],
+               batch_size=c["slots"], max_new_tokens=c["budget"], admin_token=token)
+    with Serving(gen) as srv:
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(srv.url + "/admin/reload",
+                                     json.dumps({"version": "cut", "path": cut}).encode(),
+                                     {"Content-Type": "application/json",
+                                      "Authorization": "Bearer " + token})
+        try:
+            with urllib.request.urlopen(req, timeout=900) as r:
+                d["single_cut_code"] = r.status
+        except urllib.error.HTTPError as e:
+            d["single_cut_code"] = e.code
+            d["single_cut_error"] = json.loads(e.read().decode()).get("error_type")
+    ready = {str(r): "v1" for r in range(c["replicas"])}
+    d["ok"] = (d["codes"] == {"no_token": 403, "wrong_token": 403, "file_path_as_token": 403,
+                              "token": 202}
+               and d["reload_s"] is not None
+               and d["after_reload"]["target_version"] == "v0-reload"
+               and d["channel_s"] is not None and d["after_channel"]["applied"] == ready
+               and d["after_channel"]["target_version"] == "v1"
+               and d["generate"]["versions"] == ["v1", "v1"] and d["generate"]["equal_v1"]
+               and d["score"]["code"] == 200
+               and d["score"]["launches"] == {"fwd": tol["score_launches_per_call"], "dq": 0,
+                                              "dkv": 0}
+               and d["score"].get("max_abs_diff", math.inf) <= tol["score"]
+               and d["stopped"] and d["single_cut_code"] == 409
+               and d.get("single_cut_error") == "WeightsIncompatible")
+    return d
+
+
+def rollout_spawn_checks(sf, srouter, reqs, cfg4, model4_v1, want4, upd, c, tol):
+    """Part (d) on a started subprocess fleet ``sf``: a roll through the
+    children's ``/admin/reload`` under streaming load; once seat 0 has
+    swapped, child 1 is SIGKILLed before its turn, which comes once the
+    probe loop has drained its seat (so it is skipped). Its respawn must
+    rejoin at the target version. Returns the readings with ``ok``."""
+    from tensorflowonspark_tpu_torch.serving import RolloutController
+
+    ctl = RolloutController(sf, drain_timeout=c["drain_s"], verify_timeout=c["verify_s"])
+    d, reload_s = {}, {}
+    for v in sf.views():
+        handle, inner = v["handle"], v["handle"].reload
+
+        def timed(*a, _inner=inner, _rid=v["rid"], **kw):
+            t0 = time.perf_counter()
+            out = _inner(*a, **kw)
+            reload_s[_rid] = {"wall_s": time.perf_counter() - t0,
+                              "child_swap_s": out.get("swap_seconds")}
+            return out
+
+        handle.reload = timed
+    victim = sf.views()[1]
+    hold, killed = sf.hold_seat, {}
+
+    def hold_and_kill(rid, reason="rollout"):
+        # seat 0 has swapped; child 1 dies before its turn, and its turn
+        # comes once the probe loop has drained the seat (it is skipped)
+        if rid == 1 and not killed:
+            killed["t"] = time.perf_counter()
+            os.kill(victim["handle"].pid, 9)
+            deadline = time.perf_counter() + 60
+            while sf.states()[1] == "ready" and time.perf_counter() < deadline:
+                time.sleep(0.02)
+            killed["drained_s"] = time.perf_counter() - killed["t"]
+        return hold(rid, reason)
+
+    sf.hold_seat = hold_and_kill
+    stop, started, res = threading.Event(), threading.Event(), {}
+
+    def traffic():
+        res["out"], _, res["ended"] = version_traffic(srouter, reqs, c["roll_threads"],
+                                                      until=stop, started=started)
+
+    tr = threading.Thread(target=traffic)
+    tr.start()
+    started.wait(timeout=300)
+    t0 = time.perf_counter()
+    try:
+        outcome = ctl.roll(upd)
+        d["roll_s"] = time.perf_counter() - t0
+        back = wait_seats_ready(sf, 1, c["ready_wait_s"])
+        d["respawn_s"] = None if back is None else time.perf_counter() - killed.get("t", t0)
+    finally:
+        stop.set()
+        tr.join(timeout=900)
+        sf.hold_seat = hold
+    versions = {v["rid"]: v["handle"].health().get("weights_version") for v in sf.views()}
+    out = res.get("out", {})
+    errors = [o for o in out.values() if o[0] != "ok"]
+    cmp_ = by_version({upd.version: model4_v1}, reqs,
+                      {k: o for k, o in out.items() if o[0] == "ok" and o[4] == upd.version},
+                      {upd.version: want4}, tol)
+    # both children answer under the target, the respawned one included
+    again = {}
+    for v in sf.views():
+        i = v["rid"]
+        toks = v["handle"].submit_many([reqs[i]["tokens"]], reqs[i]["max_new_tokens"],
+                                       return_logprobs=True)
+        again[i] = ("ok", toks[0][0], toks[1][0], None)
+    cmp_again = against_engine(model4_v1, reqs, list(again), again, want4, tol)
+    d.update(outcome=outcome, killed_drained_s=killed.get("drained_s"), reload_s=reload_s,
+             versions=versions, stats=ctl.stats(), requests=len(out),
+             stamps=sorted({o[4] for o in out.values() if o[0] == "ok"}),
+             terminal_errors=[(o[1], o[3]) for o in errors][:6], ended=res.get("ended"),
+             vs_engine=cmp_, children_vs_engine=cmp_again,
+             outstanding=srouter.stats()["router"]["outstanding"])
+    ctl.stop()
+    d["ok"] = (outcome == "completed" and back is not None and bool(res.get("ended"))
+               and set(versions.values()) == {upd.version}
+               and ctl.stats()["applied"].get("1") == upd.version
+               and all(o[1] == "ReplicaGone" and o[3] > 0 for o in errors)
+               and not d["outstanding"] and not cmp_["stray_versions"]
+               and all(r["confident_mismatches"] == 0 for k, r in cmp_.items()
+                       if k != "stray_versions")
+               and cmp_again["confident_mismatches"] == 0
+               and cmp_again["compared"] == len(again))
+    return d
+
+
+def phase_rollout(fa, layers=16, rehearse=None, seed=0, parts="abcd"):
+    """Zero-downtime weight rollout on the card (see the module docstring,
+    phase 13); raises SystemExit when a check fails. ``layers`` cuts the
+    depth and ``parts`` picks the parts ("a" is needed by the others;
+    chip_faults.py runs "ab"); with ``rehearse={"device": "cpu", "tiny":
+    True, "sizes": {...}}`` it runs at a tiny size on the CPU. Returns every
+    kernel's launches on the phase's main path: the trainer's steps and the
+    server's ``/score``."""
+    from tensorflowonspark_tpu_torch.cachetier.prefix import NS, prefix_key, version_prefix
+    from tensorflowonspark_tpu_torch.compute import TrainState, adamw, build_train_step
+    from tensorflowonspark_tpu_torch.compute.checkpoint import CheckpointManager, save_checkpoint
+    from tensorflowonspark_tpu_torch.models.llama import Llama, LlamaConfig, llama_loss_fn
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.serving import ContinuousBatcher, FleetRouter, ServingFleet
+    from tensorflowonspark_tpu_torch.serving import rollout
+    from tensorflowonspark_tpu_torch.tools.generate_text import load_model
+    from tensorflowonspark_tpu_torch.utils import failpoints
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**SERVE, **FLEET, **ROLLOUT, **rehearse.get("sizes", {})}
+    if rehearse.get("tiny"):
+        preset, model_flag = LlamaConfig.tiny(dtype=torch.bfloat16), "tiny"
+    else:
+        preset, model_flag = LlamaConfig.llama_1b(), "1b"
+    cfg = dataclasses.replace(preset, remat=False, num_layers=layers)
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tol = {**ROLLOUT_TOL, "score_launches_per_call": cfg.num_layers if cuda else 0}
+    eng_kw = dict(slots=c["slots"], prompt_widths=c["widths"], decode_block=c["block"],
+                  pipeline_depth=c["depth"], prefill_chunk=c["chunk"], prefix_cache=c["prefix"])
+    windows = LaunchWindows(fa, bn_kernels, cuda)
+    err, ok, nums, part_s, lap_t = {}, {}, {}, {}, [t_phase]
+    peak = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+        if cuda:
+            peak[name] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+
+    rng = np.random.default_rng(seed + 20)
+    vocab = cfg.vocab_size
+    fixed = [rng.integers(0, vocab, int(rng.integers(*c["fixed_len"]))).tolist()
+             for _ in range(c["fixed"])]
+    reqs = [{"tokens": rng.integers(0, vocab, int(rng.integers(c["min_len"],
+                                                               c["max_len"] + 1))).tolist(),
+             "max_new_tokens": c["roll_new"]} for _ in range(c["roll_requests"])]
+    l2_prompt = rng.integers(0, vocab, c["l2_prompt"]).tolist()
+    l2_ext = l2_prompt + rng.integers(0, vocab, c["l2_tail"]).tolist()
+    tmp = tempfile.mkdtemp(prefix="tfos_rollout_")
+    ch = os.path.join(tmp, "channel")
+    spawned, fleet, router, ctl = {}, None, None, None
+    refs = []
+    try:
+        # (a) the trainer: llama_1b from the seed-0 weights, fp32 params
+        tmodel = Llama(cfg, device=device, seed=seed)
+        v0 = {n: p.detach().to(cfg.dtype, copy=True) for n, p in tmodel.named_parameters()}
+        smodel = load_model(cfg, v0, device)  # the boot weights every seat starts on
+        boot = save_checkpoint(os.path.join(tmp, "boot"), {"params": v0})
+        if "d" in parts:
+            # (d)'s children boot on a cut depth of the same weights, in the
+            # background while (a) trains
+            cfg4 = dataclasses.replace(cfg, num_layers=min(layers, c["spawn_layers"]))
+            keep = {f"layers.{i}." for i in range(cfg4.num_layers)}
+
+            def cut_depth(params):
+                return {n: t for n, t in params.items()
+                        if not n.startswith("layers.") or any(n.startswith(k) for k in keep)}
+
+            boot4 = save_checkpoint(os.path.join(tmp, "boot4"), {"params": cut_depth(v0)})
+            root = os.path.dirname(os.path.abspath(__file__))
+            argv = ["--llama-checkpoint", boot4, "--model", model_flag, "--seed", str(seed),
+                    "--config-overrides", cli_overrides(cfg4, preset), "--device", device.type,
+                    "--gen-engine", "continuous", "--gen-widths",
+                    ",".join(map(str, c["widths"])), "--gen-slots", str(c["slots"]),
+                    "--gen-batch-size", str(c["slots"]), "--max-new-tokens", str(c["budget"]),
+                    "--gen-decode-block", str(c["block"]), "--gen-pipeline-depth",
+                    str(c["depth"]), "--gen-prefill-chunk", str(c["chunk"]),
+                    "--gen-prefix-cache", str(c["prefix"]), "--gen-warmup"]
+            env = dict(os.environ, PYTHONPATH=root, **({} if cuda else {"OMP_NUM_THREADS": "1"}))
+
+            def build_spawned():
+                t0 = time.perf_counter()
+                try:
+                    spawned["fleet"] = ServingFleet(
+                        spawn_argv=argv, replicas=c["replicas"], probe_interval=c["probe_s"],
+                        drain_timeout=10.0, start_timeout=c["spawn_wait_s"],
+                        spawn_kwargs={"env": env, "spawn_timeout": c["spawn_wait_s"]})
+                except BaseException as e:  # noqa: BLE001 - read by part d
+                    spawned["error"] = f"{type(e).__name__}: {e}"
+                spawned["start_s"] = time.perf_counter() - t0
+
+            spawner = threading.Thread(target=build_spawned, daemon=True)
+            spawner.start()
+        tx = adamw(c["lr"], moment_dtype=torch.bfloat16)
+        state = TrainState.create(dict(tmodel.named_parameters()), tx)
+        loss_fn = llama_loss_fn(tmodel)
+        step = build_train_step(lambda p, b: loss_fn(p, b["tokens"]), tx, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        batch = {"tokens": torch.randint(0, vocab, (c["train_batch"], c["train_seq"] + 1),
+                                         device=device, generator=gen)}
+        losses = []
+        t0 = time.perf_counter()
+        with windows:
+            for _ in range(c["train_steps"]):
+                state, loss = step(state, batch)
+                losses.append(loss.item())
+        nums["train_s"] = time.perf_counter() - t0
+        mgr = CheckpointManager(os.path.join(tmp, "train"))
+        t0 = time.perf_counter()
+        mgr.save(c["train_steps"], state)
+        mgr.wait()
+        nums["train_save_s"] = time.perf_counter() - t0
+        v1_path, v1_step = mgr.step_path(c["train_steps"]), c["train_steps"]
+        v1 = {n: p.detach().to(cfg.dtype, copy=True) for n, p in state.params.items()}
+        err["train"] = {"losses": losses, "steps": c["train_steps"], "lr": c["lr"],
+                        "batch": c["train_batch"], "seq": c["train_seq"]}
+        ok["train"] = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+        lap("a_train")
+
+        # fresh single engines on each version: the references
+        model_v1 = load_model(cfg, v1, device)
+        eng_v0 = ContinuousBatcher(smodel, **eng_kw)
+        eng_v1 = ContinuousBatcher(model_v1, **eng_kw)
+        refs += [eng_v0, eng_v1]
+        fixed_v0 = eng_v0.submit_many(fixed, c["fixed_new"])
+        fixed_v1 = eng_v1.submit_many(fixed, c["fixed_new"])
+        err["tokens_changed"] = {"prompts": len(fixed),
+                                 "differ": sum(a != b for a, b in zip(fixed_v0, fixed_v1))}
+        ok["tokens_changed"] = err["tokens_changed"]["differ"] >= 1
+        want = {}
+        for ver, eng in (("v0", eng_v0), ("v1", eng_v1)):
+            toks, lps = eng.submit_many([r["tokens"] for r in reqs], c["roll_new"],
+                                        return_logprobs=True)
+            want[ver] = {i: ("ok", t, lp, None) for i, (t, lp) in enumerate(zip(toks, lps))}
+        lap("a_refs")
+
+        # (a) the in-process fleet, its L2, the controller watching the channel
+        def factory():
+            return ContinuousBatcher(smodel, **eng_kw)
+
+        fleet = ServingFleet(factory=factory, replicas=c["replicas"],
+                             probe_interval=c["probe_s"], drain_timeout=c["drain_s"],
+                             prefix_l2={"mode": "inproc", "capacity_bytes": c["l2_bytes"]})
+        router = FleetRouter(fleet)
+        timer = SwapTimer(fleet)
+        target = {"params": dict(smodel.named_parameters())}
+
+        def loader(update):
+            return timer.load(rollout.checkpoint_loader(target["params"]), update)
+
+        ctl = rollout.RolloutController(fleet, channel_dir=ch, loader=loader,
+                                        poll_interval=c["poll_s"], drain_timeout=c["drain_s"],
+                                        verify_timeout=c["verify_s"])
+        ctl.start()
+        hits, lookup = [], fleet.cache_tier.lookup
+
+        def recorded_lookup(ns, key):
+            blob = lookup(ns, key)
+            if blob is not None:
+                hits.append(key)
+            return blob
+
+        fleet.cache_tier.lookup = recorded_lookup
+        if "d" in parts:
+            spawner.join(timeout=c["spawn_wait_s"])  # its warm-ups must not share the timings
+        lap("a_build")
+        before, wall_b, ended_b = version_traffic(router, reqs, c["roll_threads"])
+        with fleet.cache_tier._lock:
+            v0_entries = sum(k[1].startswith(version_prefix("v0")) for k in fleet.cache_tier._entries)
+        stop, started, res = threading.Event(), threading.Event(), {}
+
+        def traffic():
+            res["out"], res["wall"], res["ended"] = version_traffic(
+                router, reqs, c["roll_threads"], until=stop, started=started)
+
+        tr = threading.Thread(target=traffic)
+        tr.start()
+        started.wait(timeout=300)
+        t_pub = time.perf_counter()
+        rollout.publish_checkpoint(ch, version="v1", path=v1_path, step=v1_step)
+        roll_wait = wait_outcome(ctl, "completed", 1, c["roll_wait_s"])
+        roll_wall = time.perf_counter() - t_pub
+        n_hits_at_roll = len(hits)
+        stop.set()
+        tr.join(timeout=900)
+        during = res.get("out", {})
+        seats = timer.seats(t_pub)
+        cmp_ = by_version({"v0": smodel, "v1": model_v1}, reqs, during, want, tol)
+        cmp_before = by_version({"v0": smodel}, reqs, before, {"v0": want["v0"]}, tol)
+        metrics = fleet.metrics.render()
+        gauge = gauge_of(metrics, "fleet_weights_version")
+        totals = gauge_of(metrics, "rollout_total")
+        st = ctl.stats()
+        with fleet.cache_tier._lock:
+            v0_left = sum(k[1].startswith(version_prefix("v0")) for k in fleet.cache_tier._entries)
+
+        def ttft_p50(out):
+            t = [o[3] for o in out.values() if o[0] == "ok" and o[3] is not None]
+            return float(np.percentile(t, 50)) * 1e3 if t else None
+
+        nums["a"] = {"rollout_wall_s": roll_wall, "seats": seats,
+                     "ttft_p50_ms_before": ttft_p50(before), "ttft_p50_ms_during": ttft_p50(during),
+                     "requests_during": len(during), "traffic_wall_s": res.get("wall"),
+                     "before_wall_s": wall_b}
+        stamps = {}
+        for o in during.values():
+            if o[0] == "ok":
+                stamps[o[4]] = stamps.get(o[4], 0) + 1
+        err["a_roll"] = {"outcome_wait_s": roll_wait, "stamps": dict(stamps),
+                         "errors": [o for o in during.values() if o[0] != "ok"][:3],
+                         "vs_fresh": cmp_, "before_vs_fresh": cmp_before, "gauge": gauge,
+                         "rollout_total": totals, "stats": st, "v0_l2_entries_before": v0_entries,
+                         "v0_l2_entries_after": v0_left}
+        ordv1 = st["version_ordinals"].get("v1")
+        ok["a_roll"] = (roll_wait is not None and bool(res.get("ended")) and ended_b
+                        and all(o[0] == "ok" for o in {**before, **during}.values())
+                        and set(stamps) <= {"v0", "v1"} and stamps.get("v1", 0) >= 1
+                        and not cmp_["stray_versions"]
+                        and all(r["confident_mismatches"] == 0 for k, r in cmp_.items()
+                                if k != "stray_versions")
+                        and cmp_before["v0"]["confident_mismatches"] == 0
+                        and sorted(gauge.values()) == [ordv1] * c["replicas"]
+                        and totals.get('{outcome="completed"}') == 1
+                        and st["applied"] == {str(r): "v1" for r in range(c["replicas"])})
+        lap("a_roll")
+
+        # (a) the L2 under v1: a 384-token prefix on seat 0, its extension on
+        # seat 1 — a hit, equal to a miss; no hit since the roll is of v0
+        views = sorted(fleet.views(), key=lambda v: v["rid"])
+        fills0 = fleet.cache_stats()["fills"]
+        views[0]["handle"].submit_many([l2_prompt], c["l2_new"])
+        deadline = time.perf_counter() + 120
+        while lookup(NS, prefix_key("v1", None, l2_prompt)) is None and \
+                time.perf_counter() < deadline:
+            time.sleep(0.01)
+        eng1 = views[1]["handle"].engine
+        hits0 = eng1.stats().get("prefix_l2_hits", 0)
+        hit = views[1]["handle"].submit_many([l2_ext], c["l2_new"])[0]
+        miss = eng_v1.submit(l2_ext, c["l2_new"])
+        after = hits[n_hits_at_roll:]
+        err["a_l2"] = {"fills": fleet.cache_stats()["fills"] - fills0,
+                       "seat1_l2_hits": eng1.stats().get("prefix_l2_hits", 0) - hits0,
+                       "hit_equals_miss": hit == miss, "hits_since_roll": len(after),
+                       "v0_hits_since_roll": sum(k.startswith(version_prefix("v0")) for k in after)}
+        ok["a_l2"] = (err["a_l2"]["seat1_l2_hits"] >= 1 and hit == miss
+                      and err["a_l2"]["v0_hits_since_roll"] == 0)
+        lap("a_l2")
+
+        if "b" in parts:
+            # (b) rollbacks: each case leaves every seat at v1, its probe
+            # completions exactly a fresh v1 engine's
+            # the fixed prompts whose greedy tokens v0 and v1 part on
+            parted = [i for i in range(len(fixed)) if fixed_v0[i] != fixed_v1[i]][:c["probe"]]
+            probe = [fixed[i] for i in parted]
+            want_probe = [fixed_v1[i] for i in parted]
+
+            def at(version, want_tokens):
+                seats_ = sorted(fleet.views(), key=lambda v: v["rid"])
+                return {"states": [v["state"] for v in seats_],
+                        "versions": [v["handle"].engine.weights_version for v in seats_],
+                        "equal": [v["handle"].engine.submit_many(probe, c["fixed_new"])
+                                  == want_tokens for v in seats_],
+                        "want": version}
+
+            def held(r):
+                return (r["states"] == ["ready"] * c["replicas"]
+                        and r["versions"] == [r["want"]] * c["replicas"] and all(r["equal"]))
+
+            cases = {}
+            host_v1 = {n: t.cpu() for n, t in v1.items()}
+            # b1: one leaf's shape cut, published through the channel
+            cut_name = "lm_head" if "lm_head" in host_v1 else sorted(host_v1)[0]
+            n_rb = ctl.stats()["outcomes"].get("rolled_back", 0)
+            cut_upd = rollout.publish_params(ch, {**host_v1, cut_name: host_v1[cut_name][:-1]},
+                                             version="v1-cut")
+            del cut_upd
+            cases["b1_shape_cut"] = {"wait_s": wait_outcome(ctl, "rolled_back", n_rb + 1,
+                                                            c["roll_wait_s"]),
+                                     "error": ctl.last_error, **at("v1", want_probe)}
+            ok_b1 = (cases["b1_shape_cut"]["wait_s"] is not None and held(cases["b1_shape_cut"])
+                     and (ctl.last_error or {}).get("type") == "WeightsIncompatible")
+            lap("b1_shape_cut")
+            # b2: a committed checkpoint whose state.pt is cut short
+            trunc = truncated_copy(boot, os.path.join(tmp, "truncated"), c["truncate_bytes"])
+            rollout.publish_checkpoint(ch, version="v1-truncated", path=trunc)
+            cases["b2_truncated"] = {"wait_s": wait_outcome(ctl, "rolled_back", n_rb + 2,
+                                                            c["roll_wait_s"]),
+                                     "error": ctl.last_error, **at("v1", want_probe)}
+            ok_b2 = (cases["b2_truncated"]["wait_s"] is not None and held(cases["b2_truncated"])
+                     and (ctl.last_error or {}).get("type") not in (None, "WeightsIncompatible"))
+            lap("b2_truncated")
+            # b3: v0 by path, loaded against seat 0's running tensors; seat 1's
+            # verification raises after seat 0 swapped
+            seat0 = sorted(fleet.views(), key=lambda v: v["rid"])[0]["handle"].engine
+            target["params"] = seat0.current_weights()[1]
+            release = fleet.release_seat
+
+            def arm_after_seat0(rid):
+                release(rid)
+                if rid == 0:
+                    failpoints.arm("rollout.verify", "raise", count=1)
+
+            fleet.release_seat = arm_after_seat0
+            try:
+                out_b3 = ctl.roll(rollout.WeightsUpdate(version="v0-path", path=boot))
+            finally:
+                fleet.release_seat = release
+                target["params"] = dict(smodel.named_parameters())
+                failpoints.disarm_all()
+            cases["b3_verify_seat1"] = {"outcome": out_b3, "error": ctl.last_error,
+                                        **at("v1", want_probe)}
+            ok_b3 = (out_b3 == "rolled_back" and held(cases["b3_verify_seat1"])
+                     and (ctl.last_error or {}).get("stage") == "verify")
+            lap("b3_verify_seat1")
+            # b4: a torn LATEST (CRC mismatch) naming a committed checkpoint
+            outcomes0 = dict(ctl.stats()["outcomes"])
+            torn_latest(ch, "torn", boot)
+            time.sleep(c["torn_wait_s"])
+            cases["b4_torn_latest"] = {"outcomes": ctl.stats()["outcomes"],
+                                       **at("v1", want_probe)}
+            ok_b4 = held(cases["b4_torn_latest"]) and ctl.stats()["outcomes"] == outcomes0
+            if not ok_b4:  # a roll the check refused may still be running
+                wait_seats_ready(fleet, 0, c["ready_wait_s"])
+            lap("b4_torn_latest")
+            # b5: the trainer's live params published in process, one more
+            # step in place, then a seat respawned: it re-syncs to the snapshot
+            out_b5 = ctl.publish(state.params, version="v3")
+            with windows:
+                state, loss = step(state, batch)
+            resp0 = sum(s["respawns"] for s in fleet.stats()["seats"].values())
+            t0 = time.perf_counter()
+            fleet.force_respawn(0, "phase rollout: re-sync after the trainer's next step")
+            back = wait_seats_ready(fleet, resp0 + 1, c["ready_wait_s"])
+            seats_ = sorted(fleet.views(), key=lambda v: v["rid"])
+            w = [v["handle"].engine.current_weights() for v in seats_]
+            same = all(torch.equal(w[0][1][n], w[1][1][n]) for n in w[1][1])
+            moved = any(not torch.equal(p.detach().to(cfg.dtype), w[1][1][n])
+                        for n, p in state.params.items())
+            probes = [v["handle"].engine.submit_many(probe, c["fixed_new"]) for v in seats_]
+            cases["b5_publish_snapshot"] = {
+                "outcome": out_b5, "respawn_s": None if back is None else time.perf_counter() - t0,
+                "versions": [x[0] for x in w], "respawned_equals_snapshot": same,
+                "trainer_moved_on": moved, "probes_equal": probes[0] == probes[1],
+                "stats": ctl.stats()}
+            ok_b5 = (out_b5 == "completed" and back is not None and same and moved
+                     and [x[0] for x in w] == ["v3"] * c["replicas"] and probes[0] == probes[1])
+            lap("b5_publish_snapshot")
+            err["b_rollback"] = cases
+            ok.update(b1_shape_cut=ok_b1, b2_truncated=ok_b2, b3_verify_seat1=ok_b3,
+                      b4_torn_latest=ok_b4, b5_publish_snapshot=ok_b5)
+        ctl.stop()
+        router.close()
+        fleet = router = None
+        for eng in refs:
+            eng.close()
+        refs = []
+        del state, tmodel, step, loss_fn
+        if cuda:
+            torch.cuda.empty_cache()
+
+        if "c" in parts:
+            cut = save_checkpoint(os.path.join(tmp, "cut"),
+                                  {"params": {**v0, "embed": v0["embed"][:-1]}})
+            err["c_server"] = rollout_server_checks(
+                c, cfg, preset, model_flag, device, tmp, boot, v1_path, v1_step, cut, model_v1,
+                fixed, fixed_v1, windows, tol)
+            ok["c_server"] = err["c_server"].pop("ok")
+            nums["c"] = {k: err["c_server"].get(k) for k in ("start_s", "reload_s", "channel_s")}
+            lap("c_server")
+
+        if "d" in parts:
+            d = {"start_s": spawned.get("start_s"), "error": spawned.get("error")}
+            sf = spawned.get("fleet")
+            ok["d_spawn"] = False
+            if sf is not None:
+                srouter = FleetRouter(sf)
+                model4_v1 = load_model(cfg4, cut_depth(v1), device)
+                eng4 = ContinuousBatcher(model4_v1, **eng_kw)
+                try:
+                    toks, lps = eng4.submit_many([r["tokens"] for r in reqs], c["roll_new"],
+                                                 return_logprobs=True)
+                    want4 = {i: ("ok", t, lp, None) for i, (t, lp) in enumerate(zip(toks, lps))}
+                    upd = rollout.publish_params(os.path.join(tmp, "spawn-channel"),
+                                                 {n: t.cpu() for n, t in cut_depth(v1).items()},
+                                                 version="v1")
+                    upd = rollout.WeightsUpdate(version=upd.version, path=upd.path)
+                    d.update(rollout_spawn_checks(sf, srouter, reqs, cfg4, model4_v1, want4,
+                                                  upd, c, tol))
+                finally:
+                    eng4.close()
+                    srouter.close()
+                ok["d_spawn"] = d.pop("ok")
+            err["d_spawn"] = d
+            lap("d_spawn")
+    finally:
+        failpoints.disarm_all()
+        if ctl is not None:
+            ctl.stop()
+        if router is not None:
+            router.close()
+        for eng in refs:
+            eng.close()
+        if spawned.get("fleet") is not None:
+            spawned["fleet"].close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    nums["peak_mem_gb"] = peak or None
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["launches"] = windows.total
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "rollout", "part": "numbers", **nums})
+    good = bool(ok) and all(ok.values())
+    emit({"phase": "rollout", "case": "rollout_checks", "seed": seed, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "replicas": c["replicas"], "parts": parts, "checks": ok,
+          "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("rollout phase failed: " + ", ".join(k for k, v in ok.items() if not v))
+    return windows.total
+
+
 def decode_seeds(fa, seeds: list[int]) -> int:
     """Phase decode alone at each of ``seeds`` (weights and data), to read
     the spread of its checks against ``DECODE_TOL``: every seed's check
@@ -3865,22 +4773,26 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     score = phase_decode(fa)
     torch.cuda.empty_cache()
-    serve = phase_serve(fa)
+    # phases serve and fleet at half depth keep the whole script near 900 s
+    # with phase rollout at full depth (PERF.md, Findings)
+    serve = phase_serve(fa, layers=SERVING_DEPTH)
     torch.cuda.empty_cache()
-    fleet = phase_fleet(fa)
+    fleet = phase_fleet(fa, layers=SERVING_DEPTH)
+    torch.cuda.empty_cache()
+    rollout = phase_rollout(fa)
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
          "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
          "score_launches": score[kind], "serve_launches": serve[kind],
-         "fleet_launches": fleet[kind], **rows[kind]}
+         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind], **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
          "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind],
          "score_launches": score[kind], "serve_launches": serve[kind],
-         "fleet_launches": fleet[kind], **bn_rows[kind]}
+         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)

@@ -3,10 +3,10 @@ continuous batching — requests join and leave a persistent decode loop at
 token granularity instead of waiting for fixed-batch windows; :mod:`fleet`
 + :mod:`router` own N engine replicas behind one health-routed surface
 (failover, draining, load shedding — the client sees one engine, the
-system owns N). The fleet modules import lazily here: the single-engine
-path must not pay for them.
-
-The JAX package's rollout module is not ported yet (ROADMAP A9b, rollout).
+system owns N); :mod:`rollout` rolls published weight versions across an
+engine or a fleet one replica at a time, with rollback (zero-downtime
+weight updates). The fleet and rollout modules import lazily here: the
+single-engine path must not pay for them.
 """
 
 from tensorflowonspark_tpu_torch.serving.engine import (
@@ -26,8 +26,10 @@ __all__ = [
     "FleetRouter",
     "FleetUnavailable",
     "ReplicaGone",
+    "RolloutController",
     "ServingFleet",
     "WeightsIncompatible",
+    "WeightsUpdate",
 ]
 
 
@@ -45,4 +47,8 @@ def __getattr__(name):
         from tensorflowonspark_tpu_torch.serving.router import FleetRouter
 
         return FleetRouter
+    if name in ("RolloutController", "WeightsUpdate"):
+        from tensorflowonspark_tpu_torch.serving import rollout as _rollout
+
+        return getattr(_rollout, name)
     raise AttributeError(name)

@@ -1223,6 +1223,13 @@ class ContinuousBatcher:
         and never writes these)."""
         return self._weights_version, self._params
 
+    def serving_module(self):
+        """The module the scheduler runs now: the model itself while the
+        engine serves the model's own weights, else the model's tree bound
+        to the swapped-in set. Read between installs, it is one version's
+        whole module (``tools.serve_model``'s ``/score`` runs it)."""
+        return self._runner
+
     def swap_weights(self, new_params, *, version: str, kind: str = "full",
                      timeout: float = 120.0) -> str:
         """Replace the serving weights WITHOUT restarting the engine.

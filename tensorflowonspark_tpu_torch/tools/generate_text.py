@@ -119,8 +119,6 @@ def _load_params(checkpoint: str, cfg, lora_scale: float | None = None) -> dict:
     Floating tensors are cast to ``cfg.dtype`` here, once, so that decode
     reads weights in the compute dtype. LoRA and int8 weight trees are not
     ported (ROADMAP A10)."""
-    import torch
-
     from tensorflowonspark_tpu_torch.compute.checkpoint import (
         CheckpointManager,
         restore_checkpoint,
@@ -133,6 +131,18 @@ def _load_params(checkpoint: str, cfg, lora_scale: float | None = None) -> dict:
         tree = mgr.restore(step) if step is not None else None
     if tree is None:
         tree = restore_checkpoint(checkpoint)
+    tree = llama_params_of(tree, checkpoint)
+    return {n: t.to(cfg.dtype) if t.is_floating_point() else t for n, t in tree.items()}
+
+
+def llama_params_of(tree, checkpoint: str) -> dict:
+    """The Llama param dict (name -> tensor) of a restored checkpoint tree:
+    a ``TrainState``, a ``{'state': ...}`` or ``{'params': ...}`` wrapper,
+    or a bare param dict. Raises ``ValueError`` for a tree that holds no
+    Llama params, ``NotImplementedError`` for LoRA and int8 weight trees
+    (ROADMAP A10)."""
+    import torch
+
     for key in ("state", "params"):
         if isinstance(tree, dict) and key in tree:
             tree = tree[key]
@@ -151,7 +161,7 @@ def _load_params(checkpoint: str, cfg, lora_scale: float | None = None) -> dict:
             raise NotImplementedError(f"{name}: LoRA adapters are not ported yet: ROADMAP A10")
         if not isinstance(leaf, torch.Tensor):
             raise ValueError(f"checkpoint {checkpoint}: {name} is not a tensor")
-    return {n: t.to(cfg.dtype) if t.is_floating_point() else t for n, t in tree.items()}
+    return tree
 
 
 def load_model(cfg, params: dict, device=None):

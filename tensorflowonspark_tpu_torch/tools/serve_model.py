@@ -43,16 +43,30 @@ Endpoints::
     POST /score              -> body {"sequences": [[token ids], ...]}
                                 -> {"logprobs": [[float, ...], ...]}
                                 (per-token next-token logprobs through
-                                the flash forward; see score_width)
+                                the flash forward; see score_width),
+                                under the weights the continuous engine
+                                serves now (a rollout moves them; the
+                                JAX package's keeps the boot weights)
     POST /v1/completions     -> OpenAI-completions-shaped alias over the
                                 continuous engine (token ids only)
+    POST /admin/reload       -> authenticated weight hot-swap (token from
+                                --admin-token-file or TFOS_ADMIN_TOKEN,
+                                as ``Authorization: Bearer`` or
+                                ``X-Admin-Token``; 403 without one): body
+                                {"version", "path", "step"?} loads a
+                                committed checkpoint and swaps it into the
+                                live engine(s) between decode blocks —
+                                synchronous for a single engine (200, 409
+                                on a shape mismatch, 500 otherwise), 202
+                                and a rolling update in fleet mode
 
 Usage::
 
     python -m tensorflowonspark_tpu_torch.tools.serve_model \\
         --llama-checkpoint ckpt/ --model 1b [--gen-engine continuous] \\
         [--gen-widths 128,256,512] [--max-new-tokens 64] [--port 8500] \\
-        [--device cpu] [--gen-replicas 2] [--cachetier-l2 HOST:PORT]
+        [--device cpu] [--gen-replicas 2] [--cachetier-l2 HOST:PORT] \\
+        [--admin-token-file F] [--rollout-channel DIR [--rollout-poll S]]
 
 ``--cachetier-l2`` attaches a fleet-global prefix L2 (``cachetier.
 PrefixL2`` over a ``CacheClient``) to every engine; it needs
@@ -60,23 +74,30 @@ PrefixL2`` over a ``CacheClient``) to every engine; it needs
 L1 only. ``--cachetier-lookup-timeout`` bounds each lookup (the JAX
 package's 0.05 s by default).
 
+Weight rollout (``serving/rollout.py``): a ``RolloutController`` fronts the
+continuous engine(s), one replica at a time with rollback; ``/admin/reload``
+drives it, and ``--rollout-channel DIR`` also watches a publication
+channel (a ``LATEST`` pointer at committed checkpoint directories, polled
+every ``--rollout-poll`` seconds). ``/stats`` carries its state under
+``rollout``.
+
 Not ported yet; each raises ``NotImplementedError`` at startup naming its
 ROADMAP item: ``--export-dir``, ``--batch-size`` and ``/predict`` (A12,
-``api/export``),
-``/admin/reload``, ``--admin-token-file`` and ``--rollout-channel`` (A9b,
-rollout), ``--gen-mesh`` (A9b, mesh/TP decode), a draft model
-(A10), LoRA banks (``--gen-lora-scale``, a request's ``adapter`` != 0;
-A10), and the SLO/history plane with ``/statusz`` (``--slo-*``,
-``--obs-window-s``; A12). A request to ``/predict``, ``/admin/reload`` or
-``/statusz`` answers 501 with the same message.
+``api/export``), ``--gen-mesh`` (A9b, mesh/TP decode), a draft model
+(A10), LoRA banks (``--gen-lora-scale``, a request's ``adapter`` != 0, a
+``/admin/reload`` of ``kind`` lora; A10), and the SLO/history plane with
+``/statusz`` (``--slo-*``, ``--obs-window-s``; A12). A request to
+``/predict`` or ``/statusz`` answers 501 with the same message.
 """
 
 from __future__ import annotations
 
 import argparse
+import hmac
 import json
 import logging
 import math
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -94,8 +115,6 @@ _last_server = None
 
 # what each refused surface is, and the ROADMAP item that ports it
 _PREDICT = ("--export-dir and /predict (serving an api/export artifact)", "A12, api/export")
-_ROLLOUT = ("/admin/reload, --admin-token-file and --rollout-channel (weight rollout)",
-            "A9b, rollout")
 _STATUSZ = ("the SLO and history plane and /statusz", "A12")
 
 
@@ -109,7 +128,6 @@ def _refuse_unported(gen: dict | None, export_dir: str | None = None) -> None:
     gen = gen or {}
     refused = [
         (export_dir is not None, *_PREDICT),
-        (gen.get("admin_token") or gen.get("rollout_channel"), *_ROLLOUT),
         (gen.get("mesh"), "--gen-mesh (decode on a device mesh)", "A9b, mesh/TP decode"),
         (gen.get("draft_checkpoint") or gen.get("draft_model")
          or gen.get("draft_config_overrides") or gen.get("spec_k") is not None,
@@ -131,6 +149,11 @@ class _Handler(BaseHTTPRequestHandler):
     gen_max_new: int = 64  # per-request decode budget in engine mode
     score_fn: Any = None  # sequences -> per-token logprobs (/score)
     model_name: str = "default"  # /v1/models id + completion envelopes
+    # the RolloutController fronting the continuous engine(s), and the
+    # shared secret gating POST /admin/reload (None = endpoint disabled:
+    # hot-swapping weights is an operator-only surface)
+    rollout_ctl: Any = None
+    admin_token: str | None = None
     # the CURRENT request's trace id (adopted from X-TFOS-Trace or
     # minted at ingress); _reply stamps it into every JSON body so
     # error answers — 503/504 included — are trace-attributable
@@ -198,6 +221,8 @@ class _Handler(BaseHTTPRequestHandler):
             if self.gen_engine is not None:
                 stats.update(self.gen_engine.stats(), mode=(
                     "fleet" if getattr(self.gen_engine, "IS_FLEET", False) else "continuous"))
+                if self.rollout_ctl is not None:
+                    stats["rollout"] = self.rollout_ctl.stats()
             elif self.gen_batcher is not None:
                 stats.update(mode="coalesced", decode_calls=self.gen_batcher.decode_calls)
             elif self.gen_fn is not None:
@@ -230,9 +255,78 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/predict":
             self._reply(501, {"error": _not_ported(*_PREDICT)})
         elif self.path == "/admin/reload":
-            self._reply(501, {"error": _not_ported(*_ROLLOUT)})
+            self._do_admin_reload()
         else:
             self._reply(404, {"error": f"unknown path {self.path}"})
+
+    def _do_admin_reload(self) -> None:
+        """Authenticated hot weight swap. Body: ``{"version": ..., "path":
+        <committed checkpoint dir>, "kind": "full", "step": N?}``.
+
+        Single-engine mode answers SYNCHRONOUSLY once the swap, the warm-up
+        probe and verification finished (the surface a fleet supervisor's
+        ``SubprocessReplica.reload`` drives): 200 on ``completed``, 409 on
+        a shape/name mismatch (``WeightsIncompatible`` — the caller rolls
+        back), 500 otherwise. Fleet mode starts a rolling update in the
+        background and answers 202: rolling N replicas under drain takes
+        longer than an HTTP round trip."""
+        if self.admin_token is None:
+            self._reply(403, {"error": "admin endpoint disabled (no admin token configured: set "
+                                       "TFOS_ADMIN_TOKEN or --admin-token-file)"})
+            return
+        auth = self.headers.get("Authorization", "")
+        token = (auth[len("Bearer "):] if auth.startswith("Bearer ")
+                 else self.headers.get("X-Admin-Token", ""))
+        if not hmac.compare_digest(token.encode(), self.admin_token.encode()):
+            self._reply(403, {"error": "invalid admin token"})
+            return
+        if self.rollout_ctl is None:
+            self._reply(400, {"error": "/admin/reload requires --gen-engine continuous"})
+            return
+        from tensorflowonspark_tpu_torch.serving.rollout import WeightsUpdate
+
+        try:
+            payload = self._read_json_body()
+            update = WeightsUpdate(
+                version=str(payload["version"]), kind=str(payload.get("kind") or "full"),
+                path=str(payload["path"]),
+                step=None if payload.get("step") is None else int(payload["step"]),
+            )
+        except NotImplementedError as e:  # kind='lora': ROADMAP A10
+            self._reply(501, {"error": str(e)})
+            return
+        except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+            self._reply(400, {"error": str(e)})
+            return
+        # stamp the rollout onto every in-flight request's timeline: a trace
+        # spanning the swap shows WHICH weights served it
+        reqtrace.mark("admin.reload", version=update.version)
+        ctl = self.rollout_ctl
+        if getattr(self.gen_engine, "IS_FLEET", False):
+            threading.Thread(target=ctl.roll, args=(update,), daemon=True,
+                             name="admin-rollout").start()
+            self._reply(202, wire.encode("serve.reload", status="rolling",
+                                         version=update.version))
+            return
+        t0 = time.monotonic()
+        try:
+            outcome = ctl.roll(update)
+        except Exception as e:  # noqa: BLE001 - ferried to the caller
+            logger.exception("admin reload crashed")
+            self._reply(500, wire.encode("serve.error", error=f"{type(e).__name__}: {e}",
+                                         error_type=type(e).__name__))
+            return
+        if outcome == "completed":
+            self._reply(200, wire.encode("serve.reload", status="completed",
+                                         version=update.version,
+                                         swap_seconds=round(time.monotonic() - t0, 3)))
+            return
+        err = ctl.last_error or {}
+        etype = err.get("type", "RolloutFailed")
+        self._reply(409 if etype == "WeightsIncompatible" else 500,
+                    wire.encode("serve.error",
+                                error=f"rollout {outcome}: {err.get('error', 'unknown failure')}",
+                                error_type=etype, outcome=outcome))
 
     def _do_score(self) -> None:
         if self.score_fn is None:
@@ -1013,16 +1107,35 @@ def score_width(max_bucket: int, max_new: int, max_seq_len: int) -> int:
     return min(-(-(need - 1) // 128) * 128 + 1, max_seq_len)
 
 
+def _scoring_module(engine, lm):
+    """The module ``/score`` runs beside the continuous engine: the one the
+    engine serves now, or in fleet mode the one of the lowest-numbered ready
+    replica (``lm`` when none is ready). Mid-rollout a fleet serves two
+    versions, and ``/score`` takes that replica's."""
+    if getattr(engine, "IS_FLEET", False):
+        for v in sorted(engine.fleet.ready_views(), key=lambda v: v["rid"]):
+            eng = getattr(v["handle"], "engine", None)
+            if eng is not None:
+                return eng.serving_module()
+        return lm
+    return engine.serving_module()
+
+
 class _Server(ThreadingHTTPServer):
     """ThreadingHTTPServer that also releases the request batcher's
     worker thread and closes the engine on shutdown."""
 
     gen_batcher = None
     gen_engine = None
+    rollout_ctl = None
     drain_on_shutdown = False
 
     def shutdown(self) -> None:
         super().shutdown()
+        if self.rollout_ctl is not None:
+            # stop watching the channel BEFORE the engines go away: a
+            # rollout racing teardown would hold seats of a closing fleet
+            self.rollout_ctl.stop()
         if self.gen_batcher is not None:
             self.gen_batcher.close()
         if self.gen_engine is not None:
@@ -1039,6 +1152,9 @@ def make_server(export_dir: str | None, port: int = 8500, host: str = "127.0.0.1
     unauthenticated. ``export_dir`` (an api/export artifact) is not
     ported yet and must be None."""
     _refuse_unported(gen, export_dir)
+    if gen is not None and gen.get("rollout_channel") and gen.get("engine") != "continuous":
+        raise ValueError("a rollout channel requires the continuous engine (only it hot-swaps "
+                         "weights)")
     gen_fn, gen_bsz = (None, 0)
     engine, engine_max_new = (None, 64)
     score_fn = None
@@ -1053,17 +1169,38 @@ def make_server(export_dir: str | None, port: int = 8500, host: str = "127.0.0.1
             max_bucket = max(int(w) for w in str(gen["widths"]).split(","))
         else:
             max_bucket = int(gen.get("width", 128))
-        score_fn = build_score_fn(
-            lm,
-            width=score_width(max_bucket, int(gen.get("max_new_tokens", 64)),
-                              lm.cfg.max_seq_len),
-            bsz=int(gen.get("batch_size", 8)),
-        )
+        width = score_width(max_bucket, int(gen.get("max_new_tokens", 64)), lm.cfg.max_seq_len)
+        bsz = int(gen.get("batch_size", 8))
+        if engine is None:
+            score_fn = build_score_fn(lm, width=width, bsz=bsz)
+        else:
+            def score_fn(seqs):
+                # /score follows a rollout: it runs the weights served now
+                return build_score_fn(_scoring_module(engine, lm), width=width, bsz=bsz)(seqs)
     lock = threading.Lock()  # per-server, not shared
     batcher = None
     window = float(gen.get("batch_window", 0.0) or 0.0) if gen else 0.0
     if gen_fn is not None and window > 0:
         batcher = _GenBatcher(gen_fn, lock, window, gen_bsz)
+    rollout_ctl = None
+    if engine is not None:
+        # a controller always fronts the continuous engine(s): /admin/reload
+        # drives it, and --rollout-channel also starts the channel watcher
+        # (no thread until start()). The loader reads the running weights'
+        # names, shapes and dtypes, and restores into tensors of its own.
+        from tensorflowonspark_tpu_torch.serving.rollout import (
+            RolloutController,
+            checkpoint_loader,
+        )
+
+        rollout_ctl = RolloutController(
+            engine.fleet if getattr(engine, "IS_FLEET", False) else engine,
+            channel_dir=gen.get("rollout_channel"),
+            loader=checkpoint_loader(dict(lm.named_parameters())),
+            poll_interval=float(gen.get("rollout_poll") or 2.0),
+        )
+        if gen.get("rollout_channel"):
+            rollout_ctl.start()
     handler = type(
         "_BoundHandler",
         (_Handler,),
@@ -1076,12 +1213,15 @@ def make_server(export_dir: str | None, port: int = 8500, host: str = "127.0.0.1
             "gen_max_new": engine_max_new,
             "score_fn": staticmethod(score_fn) if score_fn is not None else None,
             "model_name": str(gen.get("served_model_name") or "default") if gen else "default",
+            "rollout_ctl": rollout_ctl,
+            "admin_token": gen.get("admin_token") if gen else None,
             "predict_lock": lock,
         },
     )
     server = _Server((host, port), handler)
     server.gen_batcher = batcher
     server.gen_engine = engine
+    server.rollout_ctl = rollout_ctl
     server.drain_on_shutdown = bool(gen.get("drain_on_shutdown") if gen else False)
     return server
 
@@ -1187,11 +1327,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the actually-bound port (useful with --port 0) to this file once "
                    "the server is ready to accept requests")
     p.add_argument("--admin-token-file", default=None,
-                   help="the /admin/reload weight hot-swap endpoint (not ported: ROADMAP A9b, "
-                   "rollout)")
+                   help="enable the authenticated POST /admin/reload weight hot-swap endpoint "
+                   "with the token read from this file (else from TFOS_ADMIN_TOKEN, which a "
+                   "fleet supervisor injects into its subprocess replicas); without a token "
+                   "the endpoint answers 403")
     p.add_argument("--rollout-channel", default=None,
-                   help="watch a checkpoint publication channel (not ported: ROADMAP A9b, "
-                   "rollout)")
+                   help="continuous engine: watch this checkpoint publication channel (an "
+                   "atomically written LATEST pointer at committed checkpoint directories; see "
+                   "serving/rollout.py) and hot-swap each newly published version into the live "
+                   "engine(s) — one replica at a time under router health with --gen-replicas, "
+                   "with automatic rollback on failure")
+    p.add_argument("--rollout-poll", type=float, default=2.0,
+                   help="rollout channel poll interval in seconds")
     for flag in ("--slo-ttft-s", "--slo-latency-s", "--slo-error-budget", "--obs-window-s"):
         p.add_argument(flag, type=float, default=None,
                        help="the SLO and history plane (not ported: ROADMAP A12)")
@@ -1200,6 +1347,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "and keep serving when the scheduler makes no progress for this many "
                    "seconds with work in flight. Default: disabled")
     return p
+
+
+def read_admin_token(path: str | None) -> str | None:
+    """The /admin/reload secret: the contents of ``path`` (stripped), else
+    ``TFOS_ADMIN_TOKEN``; None (the endpoint answers 403) when neither
+    holds one."""
+    token = None
+    if path:
+        with open(path, encoding="utf-8") as f:
+            token = f.read().strip() or None
+    return token or os.environ.get("TFOS_ADMIN_TOKEN") or None
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1212,10 +1370,14 @@ def main(argv: list[str] | None = None) -> int:
                 "continuous engines)")
     if args.gen_replicas < 1:
         p.error(f"--gen-replicas must be >= 1, got {args.gen_replicas}")
+    if args.rollout_channel and args.gen_engine != "continuous":
+        p.error("--rollout-channel requires --gen-engine continuous (only the continuous "
+                "engine hot-swaps weights)")
     if args.batch_size is not None:
         raise NotImplementedError(_not_ported("--batch-size (the /predict batch)",
                                               _PREDICT[1]))
     logging.basicConfig(level=logging.INFO)
+    admin_token = read_admin_token(args.admin_token_file)
     gen = None
     if args.llama_checkpoint is not None:
         gen = dict(
@@ -1255,8 +1417,9 @@ def main(argv: list[str] | None = None) -> int:
             served_model_name=args.served_model_name,
             replicas=args.gen_replicas,
             probe_interval=args.gen_probe_interval,
-            admin_token=args.admin_token_file,
+            admin_token=admin_token,
             rollout_channel=args.rollout_channel,
+            rollout_poll=args.rollout_poll,
             slo_ttft_s=args.slo_ttft_s,
             slo_latency_s=args.slo_latency_s,
             slo_error_budget=args.slo_error_budget,
@@ -1270,12 +1433,10 @@ def main(argv: list[str] | None = None) -> int:
         # atomic (tmp + rename): a poller must never read a torn port.
         # Written AFTER make_server returns — the engine is built (and
         # warmed, with --gen-warmup).
-        import os as _os
-
-        tmp = f"{args.port_file}.tmp.{_os.getpid()}"
+        tmp = f"{args.port_file}.tmp.{os.getpid()}"
         with open(tmp, "w", encoding="utf-8") as f:
             f.write(str(server.server_address[1]))
-        _os.replace(tmp, args.port_file)
+        os.replace(tmp, args.port_file)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -444,7 +444,9 @@ FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_
           "eos_not_sticky", "qk_logits_bf16", "admit_wrong_slot", "decode_row0_pos_frozen",
           "block_surplus_emitted", "penalty_after_temperature", "sample_counter_is_step",
           "router_no_failover_before_first_token", "l2_key_without_version",
-          "l2_filler_before_event", "cache_close_leaves_conns_open"]
+          "l2_filler_before_event", "cache_close_leaves_conns_open",
+          "loader_writes_running_tensors", "publish_keeps_reference", "rollback_skips_restore",
+          "latest_crc_unchecked"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)

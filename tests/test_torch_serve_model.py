@@ -10,7 +10,8 @@ must return the same token ids, and logprobs and scores within 1e-4.
 option the port's server does not have yet raises
 ``NotImplementedError`` at startup naming its ROADMAP item, and its
 request paths answer 501 with the same message (the fleet and the prefix
-L2 are held in ``tests/test_torch_fleet.py``).
+L2 are held in ``tests/test_torch_fleet.py``, ``/admin/reload`` and the
+rollout channel in ``tests/test_torch_rollout_serve.py``).
 """
 
 import contextlib
@@ -149,8 +150,6 @@ def test_server_answers_as_the_jax_server_does(engine, checkpoints):
 
 
 REFUSED = {
-    "rollout_channel": (dict(rollout_channel="/nonexistent"), "A9b, rollout"),
-    "admin_token": (dict(admin_token="secret"), "A9b, rollout"),
     "mesh": (dict(mesh="model=2"), "A9b, mesh/TP decode"),
     "draft_checkpoint": (dict(draft_checkpoint="/nonexistent"), "A10"),
     "spec_k": (dict(spec_k=4), "A10"),
@@ -198,9 +197,8 @@ def test_score_width_covers_generate_and_meets_the_flash_gate(bucket, new, ctx, 
 def test_unported_paths_answer_501(checkpoints):
     gen = _gen(checkpoints[1], "continuous", device="cpu")
     with _serving(tserve.make_server, gen) as url:
-        for path, item in (("/predict", "A12, api/export"), ("/admin/reload", "A9b, rollout")):
-            code, body = _post(url, path, {})
-            assert code == 501 and f"ROADMAP {item}" in body
+        code, body = _post(url, "/predict", {})
+        assert code == 501 and "ROADMAP A12, api/export" in body
         code, body = _get(url, "/statusz")
         assert code == 501 and "ROADMAP A12" in body
         code, body = _post(url, "/generate", {"prompts": [[1, 2]], "adapter": 1})
