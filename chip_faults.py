@@ -84,6 +84,8 @@ ROUTER = Path("tensorflowonspark_tpu_torch/serving/router.py")
 PREFIX_L2 = Path("tensorflowonspark_tpu_torch/cachetier/prefix.py")
 CACHE_SERVICE = Path("tensorflowonspark_tpu_torch/cachetier/service.py")
 ROLLOUT = Path("tensorflowonspark_tpu_torch/serving/rollout.py")
+LORA = Path("tensorflowonspark_tpu_torch/ops/lora.py")
+QUANT = Path("tensorflowonspark_tpu_torch/ops/quant.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
@@ -91,14 +93,16 @@ DECODE_CHECK = "phase_decode(fa, layers=4)"
 SERVE_CHECK = "phase_serve(fa, layers=4)"
 FLEET_CHECK = 'phase_fleet(fa, layers=4, parts="bc")'
 ROLLOUT_CHECK = 'phase_rollout(fa, layers=4, parts="ab")'
+LORA_CHECK = 'phase_lora(fa, layers=4, parts="abcd")'
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
           CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
           ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK, ENGINE: SERVE_CHECK,
           ROUTER: FLEET_CHECK, PREFIX_L2: FLEET_CHECK, CACHE_SERVICE: FLEET_CHECK,
-          ROLLOUT: ROLLOUT_CHECK}
+          ROLLOUT: ROLLOUT_CHECK, LORA: LORA_CHECK, QUANT: LORA_CHECK}
 # faults whose check is not their source's
 FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
-                "elastic_plain_attention": ELASTIC_CHECK}
+                "elastic_plain_attention": ELASTIC_CHECK,
+                "lora_swap_writes_in_place": LORA_CHECK}
 
 # name -> (source, statement as in the source, the faulty statement)
 FAULTS = {
@@ -367,13 +371,39 @@ FAULTS = {
         'if int(doc["crc"]) != zlib.crc32(_manifest_body(raw_manifest)):',
         "if False:",
     ),
+    # the bank's gather is off by one slot: each row runs the next adapter
+    "bank_gather_off_by_one": (
+        LORA,
+        "    a_sel = w.a[adapter_ids].to(x.dtype)\n    b_sel = w.b[adapter_ids].to(x.dtype)",
+        "    a_sel = w.a[(adapter_ids + 1) % w.n_adapters].to(x.dtype)\n"
+        "    b_sel = w.b[(adapter_ids + 1) % w.n_adapters].to(x.dtype)",
+    ),
+    # the int8 scales are broadcast on the weight's input axis of the square
+    # weights (q_proj, o_proj), where the shapes alone let it pass: each
+    # column takes another row's scale
+    "int8_scale_on_input_axis": (
+        QUANT,
+        "    return (acc * w.scale.float().reshape(-1)).to(x.dtype)",
+        "    return (torch.matmul(x.float(), (w.q.float() * w.scale.float().reshape(1, -1)).t())"
+        " if w.q.shape[0] == w.q.shape[1] else acc * w.scale.float().reshape(-1)).to(x.dtype)",
+    ),
+    # a lora swap writes the new factors into the running weight set's own
+    # tensors in place, under the requests decoding and the retained prior
+    "lora_swap_writes_in_place": (
+        ENGINE,
+        "placed[name] = self._place_leaf(old[name], t, name)",
+        "placed[name] = old[name].copy_(t)",
+    ),
 }
 # the check of phase rollout that must refuse each of its faults (its JSON
 # line names every check it failed)
 NAMED_CHECKS = {"loader_writes_running_tensors": "b3_verify_seat1",
                 "publish_keeps_reference": "b5_publish_snapshot",
                 "rollback_skips_restore": "b3_verify_seat1",
-                "latest_crc_unchecked": "b4_torn_latest"}
+                "latest_crc_unchecked": "b4_torn_latest",
+                "bank_gather_off_by_one": "c_bank_rows",
+                "int8_scale_on_input_axis": "b_int8",
+                "lora_swap_writes_in_place": "d_prior_intact"}
 
 
 def check_of(name: str) -> str:
@@ -417,7 +447,7 @@ def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Pope
 # checks whose children run after the others, in this order: check ->
 # (label, how many children at once)
 LATER = {DECODE_CHECK: ("decode", 7), SERVE_CHECK: ("serve", 6), FLEET_CHECK: ("fleet", 5),
-         ROLLOUT_CHECK: ("rollout", 3),
+         ROLLOUT_CHECK: ("rollout", 3), LORA_CHECK: ("lora", 4),
          ELASTIC_CHECK: ("elastic", 3)}
 
 
@@ -488,7 +518,8 @@ def main(argv: list[str]) -> int:
         failed = sorted(k for k, v in line.get("checks", {}).items() if not v)
         named = NAMED_CHECKS.get(label)
         good &= passed if unchanged else not passed and (named is None or named in failed)
-        err = line["err"] if named is None else line["err"].get("b_rollback", {}).get(named)
+        err = (line["err"] if named is None else
+               line["err"].get(named, line["err"].get("b_rollback", {}).get(named)))
         print(json.dumps({"fault": label, "passed_check": passed, "case": line["case"],
                           "failed_checks": failed, "named_check": named, "err": err,
                           "lse_err": line.get("lse_err"), "tol": line["tol"]}), flush=True)

@@ -196,8 +196,9 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    ``/metrics`` with both replica labels, ``/score`` at width 769 with one
    B1 launch a layer. Peak device memory, ``wall_s``, each part's seconds.
 13. rollout — zero-downtime weight rollout (``serving/rollout.py``) on
-   phase fleet's engine settings, limits in ``ROLLOUT_TOL``: (a) the
-   port's train step trains llama_1b from the seed-0 weights (fp32 params,
+   phase fleet's engine settings, limits in ``ROLLOUT_TOL``, llama_1b at
+   ``SERVING_DEPTH`` when the whole script runs: (a) the port's train
+   step trains llama_1b from the seed-0 weights (fp32 params,
    ``adamw(1e-3, moment_dtype=bf16)``, batch 4, seq 1024, 3 steps, B1–B3
    counted) and ``CheckpointManager`` saves its ``TrainState``;
    ``publish_checkpoint`` points a channel at the step, and a
@@ -233,6 +234,42 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    and its respawn rejoins at the target version: no request lost, the
    children against a 4-layer engine of v1. Peak device memory per part,
    ``wall_s``, each part's seconds.
+14. lora — LoRA and int8 weights (``ops/lora.py``, ``ops/quant.py``) on
+   ``LlamaConfig.llama_1b`` at full width and depth, seed 0, limits in
+   ``LORA_TOL``: (a) ``add_lora(rank=16)`` on the seven projections of the
+   seed-0 weights (fp32 params, bf16 compute) fine-tuned with
+   ``lora_optimizer(adamw(1e-3, moment_dtype=bf16))`` at batch 8, seq 1024,
+   4 steps: the first logits equal the base model's (b = 0), every base
+   leaf bit-unchanged, no gradient and no moment for a frozen leaf, the
+   optimizer state's bytes those of the adapters' moments, the loss falls,
+   16 launches of each of B1-B3 a step; step ms beside phase train's full
+   fine-tune. (b) ``merge_lora`` then ``quantize_tree``: the int8 model's
+   greedy decode at batch 8 (prompts 64-512, 128 new) against the merged
+   bf16 model's teacher-forced forward by the confident-token rule, the rms
+   of their logits' difference and of the int8 logits' against a bf16 model
+   of the same codes dequantized, resident weight bytes int8 against bf16,
+   ms per decode step at batch 1 and 8 for both with device busy against
+   host time over two profiled steps; ``examples/llama_fsdp.py --lora-rank
+   16 --generate 16 --quantize-decode`` once through ``tfcluster.run`` (its
+   tiny 4-layer config). (c) A bank of (a)'s adapters after steps 1, 2 and 4 plus the
+   zero slot: rows routed through it in fp32 against each adapter merged
+   alone; a ``ContinuousBatcher`` (8 slots, widths 128/256/512) under 24
+   greedy requests with adapters 0-3 from 8 threads against ``generate`` on
+   each adapter merged alone (slot 0: the base model) by the confident-token
+   rule; a prompt under two adapters a prefix-cache miss, under the same
+   one a hit equal to the miss; tokens/s and TTFT p50 beside the same
+   engine without a bank. (d) ``lora_state`` of a second bank (the adapters
+   reordered) through ``swap_weights(kind="lora")`` under traffic: every
+   request resolves stamped v0 or v1, each against a fresh engine of its
+   version; the bases the same tensors, the prior bit-unchanged; install
+   seconds beside a full swap on the same engine; then a ``RolloutController``
+   of kind lora from a channel across an in-process two-seat fleet.
+   (e) ``serve_model.make_server`` over a bank checkpoint with
+   ``lora_scale``: ``/generate`` with ``adapter`` 2 equal to the engine's,
+   ``adapter`` 9 a 400, ``/admin/reload`` of kind lora 200 and the new
+   adapters served, ``/score`` at width 769 (16 B1 launches) against the
+   plain attention. Each part runs guarded: an exception fails its check by
+   name. Peak device memory per part, ``wall_s``, each part's seconds.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
@@ -241,7 +278,8 @@ timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
 ``score_launches`` phase decode's scoring call, ``serve_launches`` the
 ``/score`` call of phase serve's server, ``fleet_launches`` that of phase
 fleet's server, ``rollout_launches`` phase rollout's trainer steps and
-its server's ``/score``),
+its server's ``/score``, ``lora_launches`` phase lora's fine-tune steps
+and its server's ``/score``),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -2498,7 +2536,7 @@ def phase_decode(fa, layers=16, rehearse=None, seed=0):
 
 
 # phase serve: sizes (a CPU rehearsal passes smaller ones)
-SERVING_DEPTH = 8  # layers of llama_1b in phases serve and fleet when the whole script runs
+SERVING_DEPTH = 8  # layers of llama_1b in phases serve, fleet and rollout in the whole script
 SERVE = dict(requests=24, sampled=8, threads=8, min_len=16, max_len=500, min_new=16, max_new=256,
              sampled_new=(16, 64), widths=(128, 256, 512), slots=8, block=8, depth=2,
              stagger=0.05, alone=3, alone_new=48, chunk=128, prefix=4, system=256, chunk_new=64,
@@ -2683,12 +2721,13 @@ def hold_to_reference(tokens, logprobs, ref_logits, ref_tokens, tol):
             "parted_at": part, "max_abs_logprob": float(lp_err[:part + 1].max())}
 
 
-def http(url, path, body=None, timeout=900):
+def http(url, path, body=None, timeout=900, headers=None):
     import urllib.error
     import urllib.request
 
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+    req = urllib.request.Request(url + path, data, {"Content-Type": "application/json",
+                                                    **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, r.read().decode()
@@ -3966,8 +4005,9 @@ def version_traffic(target, reqs, threads, until=None, started=None):
     """Every request of ``reqs`` as a greedy stream through ``target`` from
     ``threads`` threads; with ``until`` (an Event) each thread cycles
     through its share again and again until it is set. Returns the
-    outcomes {(round, i): ("ok", tokens, logprobs, ttft_s, weights_version)
-    or ("err", type, message, tokens yielded, None)}, the wall seconds and
+    outcomes {(round, i): ("ok", tokens, logprobs, ttft_s, weights_version,
+    start, end) or ("err", type, message, tokens yielded, None, start,
+    end)} (start and end on ``time.perf_counter``), the wall seconds and
     whether every thread ended."""
     out, opened, lock = {}, [0], threading.Lock()
 
@@ -3986,9 +4026,11 @@ def version_traffic(target, reqs, threads, until=None, started=None):
                         n += 1
                         if first is None:
                             first = time.perf_counter() - t0
-                    out[(rnd, i)] = ("ok", s.result, s.logprobs, first, s.weights_version)
+                    out[(rnd, i)] = ("ok", s.result, s.logprobs, first, s.weights_version, t0,
+                                     time.perf_counter())
                 except Exception as e:  # noqa: BLE001 - an outcome of its own
-                    out[(rnd, i)] = ("err", type(e).__name__, str(e)[:200], n, None)
+                    out[(rnd, i)] = ("err", type(e).__name__, str(e)[:200], n, None, t0,
+                                     time.perf_counter())
             rnd += 1
             if until is None or until.is_set():
                 return
@@ -4729,6 +4771,752 @@ def phase_rollout(fa, layers=16, rehearse=None, seed=0, parts="abcd"):
     return windows.total
 
 
+# phase lora: LoRA fine-tuning through B1-B3, merge + int8 decode, a bank of
+# adapters served and rolled, the server over a bank checkpoint
+LORA = dict(rank=16, batch=8, seq=1024, steps=4, lr=1e-3, snapshots=(1, 2, 4),
+            dec_batch=8, dec_min=64, dec_width=512, dec_new=128, time_prompt=128,
+            time_steps=16, example_args=["--steps", "4", "--seq", "128", "--batch-size", "8",
+                                         "--lora-rank", "16", "--generate", "16",
+                                         "--quantize-decode"],
+            requests=24, threads=8, min_len=16, max_len=500, min_new=16, max_new=64,
+            widths=(128, 256, 512), slots=8, block=8, depth=2, chunk=128, prefix=4,
+            prefix_prompt=300, route_rows=4, route_len=256, roll_requests=12, roll_threads=4,
+            roll_new=24, replicas=2, probe_s=0.5, drain_s=60.0, poll_s=0.2, roll_wait_s=300.0,
+            budget=256, score_rows=4, quant_min=1 << 16)
+# Limits of phase lora. "logits" / "logprob": phase serve's confident-token
+# rule and logprob limit (bf16 decodes against references on the same
+# weights). "route": a forward in fp32 of rows routed through the bank
+# against each row's adapter merged alone, max |diff| of the logits (the
+# same fp32 numbers summed in other orders; the adapters themselves must
+# move the logits by "route_separation" times the limit or more). "int8_rms":
+# the int8 model's teacher-forced logits against the merged bf16 model's,
+# rms of the difference; "int8_dequant_rms": against a bf16 model of the
+# same codes dequantized, where only the product's rounding differs;
+# "int8_gap": the top-2 gap of the bf16 logits above which the int8 greedy
+# token must be their argmax. "score": /score through B1 against the plain
+# attention (phase decode's). On the H100 at seed 0 (PERF.md, Findings) route
+# read 2.98e-5 with the smallest adapter effect 0.176 (the limit 3.4x); int8
+# read rms 0.0751 against bf16 and 0.0274 against the dequantized model
+# (max |diff| 0.445, under half the gap): each limit is twice its reading,
+# and scales applied on the input axis of the square projections read 0.41
+# on both at 4 layers (chip_faults.py), where the sound code reads 0.049
+# and 0.017.
+LORA_TOL = dict(logits=SERVE_TOL["logits"], logprob=SERVE_TOL["logprob"], route=1e-4,
+                route_separation=10.0, int8_rms=0.15, int8_dequant_rms=0.055, int8_gap=1.0,
+                score=DECODE_TOL["score"])
+
+
+class Guarded:
+    """Runs one part of a phase: an exception fails that part's check by
+    name (its message kept in ``err``) instead of ending the phase, so the
+    phase's check line still names every check that failed."""
+
+    def __init__(self, name, ok, err):
+        self.name, self.ok, self.err = name, ok, err
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, exc, tb):
+        if exc is None or not isinstance(exc, Exception):
+            return False
+        import traceback
+
+        self.ok[self.name] = False
+        self.err[self.name + "_error"] = "".join(
+            traceback.format_exception_only(kind, exc)).strip()[-600:]
+        return True
+
+
+def bank_forward(module, tokens, ids=None):
+    """fp32 logits (B, S, V) of ``module`` on ``tokens`` with each row's
+    bank slot ``ids`` (None: slot 0)."""
+    with torch.no_grad():
+        return module(tokens, adapter_ids=ids).float()
+
+
+def bank_teacher_forced(module, prompt, completion, k):
+    """:func:`teacher_forced` through a bank module with the row routed to
+    adapter ``k``."""
+    with torch.no_grad():
+        row = torch.tensor([prompt + completion], device=module.device)
+        ids = torch.tensor([k], device=module.device)
+        logits = module(row, adapter_ids=ids)[0]
+    return logits[len(prompt) - 1:len(prompt) - 1 + len(completion)].float()
+
+
+def run_example(argv, cuda):
+    """``examples/llama_fsdp.py``'s ``main_fun`` on one node launched by the
+    port's ``tfcluster.run`` (a process group of one), its printed lines
+    captured from the shared standard output."""
+    from tensorflowonspark_tpu_torch.cluster import tfcluster
+    from tensorflowonspark_tpu_torch.cluster.tfcluster import InputMode
+    from tensorflowonspark_tpu_torch.examples import llama_fsdp
+
+    args = llama_fsdp.parse_args(argv + ([] if cuda else ["--cpu"]))
+    with tempfile.TemporaryFile(mode="w+") as cap:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(cap.fileno(), 1)
+        try:
+            t0 = time.perf_counter()
+            cluster = tfcluster.run(llama_fsdp.main_fun, args, num_executors=1,
+                                    input_mode=InputMode.TENSORFLOW, distributed=True,
+                                    reservation_timeout=600,
+                                    env=None if cuda else {"CUDA_VISIBLE_DEVICES": "",
+                                                           "OMP_NUM_THREADS": "1"})
+            cluster.shutdown(timeout=600)
+            wall = time.perf_counter() - t0
+        except Exception as e:
+            cap.seek(0)
+            raise RuntimeError(f"{e}; the node's output: {cap.read()[-3000:]}") from e
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        cap.seek(0)
+        out = cap.read()
+    return out, wall
+
+
+def start_example(argv, cuda):
+    """:func:`run_example` on a thread of its own; ``join`` it through
+    :func:`example_check`."""
+    res = {}
+
+    def run():
+        try:
+            res["out"], res["wall"] = run_example(argv, cuda)
+        except Exception as e:  # noqa: BLE001 - read by example_check
+            res["error"] = f"{type(e).__name__}: {e}"
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, res
+
+
+def example_check(example, c, ok, err):
+    """Phase lora (b)'s check of the example's run: its decode line and its
+    count of quantized weights."""
+    t, res = example
+    t.join(timeout=900)
+    if "out" not in res:
+        ok["b_example"] = False
+        err["b_example"] = {"error": res.get("error", "the example did not end")[-3000:]}
+        return
+    out = res["out"]
+    gen_line = [x for x in out.splitlines() if x.startswith("generated ")]
+    q_line = [x for x in out.splitlines() if x.startswith("quantized ")]
+    n_q = int(q_line[0].split()[1]) if q_line else 0
+    err["b_example"] = {"wall_s": res["wall"], "generated": gen_line[:1], "quantized": q_line[:1],
+                        "mfu": [x for x in out.splitlines() if "MFU" in x][:1]}
+    n_gen = c["example_args"][c["example_args"].index("--generate") + 1]
+    ok["b_example"] = (bool(gen_line) and n_q > 0
+                       and f"{float(n_gen)} tokens/seq" in gen_line[0])
+    if not ok["b_example"]:
+        err["b_example"]["output_tail"] = out[-3000:]
+
+
+def phase_lora(fa, layers=16, rehearse=None, seed=0, parts="abcde", train_step_ms=None):
+    """LoRA and int8 weights on the card (see the module docstring, phase
+    14); raises SystemExit when a check fails. ``layers`` cuts the depth
+    and ``parts`` picks the parts ("a" is needed by the others;
+    chip_faults.py runs "abcd"); with ``rehearse={"device": "cpu", "tiny":
+    True, "sizes": {...}}`` it runs at a tiny size on the CPU. Returns every
+    kernel's launches on the phase's main path: the fine-tune's steps and
+    the server's ``/score``."""
+    from tensorflowonspark_tpu_torch.compute import TrainState, adamw, build_train_step
+    from tensorflowonspark_tpu_torch.compute.checkpoint import save_checkpoint
+    from tensorflowonspark_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        adopt_params,
+        decode_step,
+        generate,
+        init_cache,
+        llama_loss_fn,
+        prefill,
+    )
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.ops import lora as L
+    from tensorflowonspark_tpu_torch.ops import quant as Q
+    from tensorflowonspark_tpu_torch.serving import ContinuousBatcher, FleetRouter, ServingFleet
+    from tensorflowonspark_tpu_torch.serving import rollout
+    from tensorflowonspark_tpu_torch.tools import generate_text, serve_model
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**LORA, **rehearse.get("sizes", {})}
+    if rehearse.get("tiny"):
+        preset, model_flag = LlamaConfig.tiny(dtype=torch.bfloat16), "tiny"
+    else:
+        preset, model_flag = LlamaConfig.llama_1b(), "1b"
+    cfg = dataclasses.replace(preset, remat=False, num_layers=layers,
+                              max_seq_len=max(preset.max_seq_len, c["seq"]))
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tol = {**LORA_TOL, "launches_per_step": cfg.num_layers if cuda else 0,
+           "score_launches_per_call": cfg.num_layers if cuda else 0}
+    eng_kw = dict(slots=c["slots"], prompt_widths=c["widths"], decode_block=c["block"],
+                  pipeline_depth=c["depth"], prefill_chunk=c["chunk"], prefix_cache=c["prefix"])
+    windows = LaunchWindows(fa, bn_kernels, cuda)
+    err, ok, nums, part_s, lap_t, peak = {}, {}, {}, {}, [t_phase], {}
+    bf16 = cfg.dtype
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+        if cuda:
+            peak[name] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+
+    def cast(params):
+        return {n: t.detach().to(bf16) if t.is_floating_point() else t.detach()
+                for n, t in params.items()}
+
+    def model_of(params):
+        m = Llama(cfg, device=device, seed=seed)
+        adopt_params(m, params)
+        return m
+
+    rng = np.random.default_rng(seed + 30)
+    vocab = cfg.vocab_size
+    tmp = tempfile.mkdtemp(prefix="tfos_lora_")
+    engines, fleet, router, ctl = [], None, None, None
+    try:
+        # (a) the fine-tune: rank-r adapters on the seven projections of the
+        # seed-0 weights (fp32 params, bf16 compute), adamw on the adapters
+        model = Llama(cfg, device=device, seed=seed)
+        base = {n: p for n, p in model.named_parameters()}
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        batch = {"tokens": torch.randint(0, vocab, (c["batch"], c["seq"] + 1), device=device,
+                                         generator=gen)}
+        probe = batch["tokens"][:1, :-1]
+        with torch.no_grad():
+            base_logits = model(probe)
+        params = adopt_params(model, L.add_lora(base, c["rank"], gen))
+        with torch.no_grad():
+            first_equal = bool(torch.equal(model(probe), base_logits))
+        del base_logits
+        trained = sorted(n for n, lab in L.lora_labels(params).items() if lab == "train")
+        frozen = [n for n in params if n not in trained]
+        frozen_copy = {n: params[n].detach().clone() for n in frozen}
+        tx = L.lora_optimizer(adamw(c["lr"], moment_dtype=torch.bfloat16), params)
+        state = TrainState.create(params, tx)
+        loss_fn = llama_loss_fn(model)
+        step = build_train_step(lambda p, bt: loss_fn(p, bt["tokens"]), tx, device=device)
+        losses, step_s, snaps = [], [], {}
+        with windows:
+            for i in range(c["steps"]):
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                losses.append(loss.item())  # waits for the step
+                step_s.append(time.perf_counter() - t0)
+                if i + 1 in c["snapshots"]:
+                    snaps[i + 1] = {n: params[n].detach().clone() for n in trained}
+        a_launches = dict(windows.total)
+
+        def run_step():
+            nonlocal state
+            state, _ = step(state, batch)
+
+        prof = profile_steps(run_step, n=1, model="llama_1b_lora") if cuda else {}
+        adam = state.opt_state.inner_states["train"][0]
+        opt_bytes = sum(t.numel() * t.element_size() for d in (adam.mu, adam.nu)
+                        for t in d.values())
+        adapter_elems = sum(params[n].numel() for n in trained)
+        unchanged = [n for n in frozen if torch.equal(params[n], frozen_copy[n])]
+        del frozen_copy
+        no_grad = all(params[n].grad is None and not params[n].requires_grad for n in frozen)
+        n_params = sum(p.numel() for p in params.values())
+        tokens = c["batch"] * c["seq"]
+        ms = float(np.median(step_s[1:])) * 1e3 if len(step_s) > 1 else step_s[0] * 1e3
+        nums["a"] = {"step_ms": ms, "step_ms_each": [s * 1e3 for s in step_s],
+                     "train_phase_full_step_ms": train_step_ms, "tokens_per_s": tokens / ms * 1e3,
+                     "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
+                     "device_idle_share": prof.get("device_idle_share"),
+                     "aten_calls_per_step": prof.get("aten_calls_per_step"),
+                     "trainable_params": adapter_elems, "params": n_params,
+                     "opt_state_bytes": opt_bytes, "launches": a_launches}
+        err["a_train"] = {"losses": losses, "first_logits_equal_base": first_equal,
+                          "frozen": len(frozen), "frozen_unchanged": len(unchanged),
+                          "trained": len(trained), "moment_leaves": len(adam.mu) + len(adam.nu),
+                          "opt_state_bytes": opt_bytes,
+                          "adapter_moment_bytes": 2 * 2 * adapter_elems,
+                          "frozen_no_grad": no_grad, "launches": a_launches}
+        want = c["steps"] * tol["launches_per_step"]
+        ok["a_train"] = (first_equal and all(math.isfinite(x) for x in losses)
+                         and losses[-1] < losses[0] and len(unchanged) == len(frozen) and no_grad
+                         and sorted(adam.mu) == sorted(adam.nu) == trained
+                         and opt_bytes == 2 * 2 * adapter_elems
+                         and state.opt_state.inner_states["freeze"] is not None
+                         and a_launches["fwd"] == a_launches["dq"] == a_launches["dkv"] == want)
+        del state, adam, step
+        lap("a_train")
+
+        # the adapters of (a) after steps 1, 2 and 4, each over the same base
+        # tensors, and the bank of them (slot 0 the zero adapter)
+        adapters = [{**{n: t for n, t in params.items() if n not in trained}, **snaps[k]}
+                    for k in c["snapshots"]]
+        bank32 = L.multi_lora_bank(adapters)
+        n_slots = L.bank_size(bank32)
+        base16 = cast({n: t for n, t in params.items() if n in base})
+        merged16 = cast(L.merge_lora(params))
+
+        if "b" in parts:
+            with Guarded("b_int8", ok, err):
+                # (b) merge, then quantize, then decode
+                merged32 = L.merge_lora(params)
+                n_big = sum(t.dim() == 2 and t.numel() >= c["quant_min"] for t in merged32.values())
+                q8 = Q.quantize_tree(merged32, min_size=c["quant_min"])
+                del merged32
+                q8 = {n: (t if n in Q.quantized_names(q8) or n.endswith(Q.SCALE)
+                          else t.to(bf16)) for n, t in q8.items()}
+                m_bf16, m_int8 = model_of(merged16), model_of(q8)
+                bytes_of = lambda ps: sum(t.numel() * t.element_size() for t in ps.values())  # noqa: E731
+                b, width, new = c["dec_batch"], c["dec_width"], c["dec_new"]
+                lengths = rng.integers(c["dec_min"], width + 1, b)
+                lengths[0], lengths[-1] = width, c["dec_min"]
+                prompts = [rng.integers(0, vocab, n).tolist() for n in lengths]
+                t0 = time.perf_counter()
+                comps, _ = generate_text.decode_batches(m_int8, prompts, batch_size=b,
+                                                        width=width, max_new_tokens=new)
+                gen_s = time.perf_counter() - t0
+                forced = torch.zeros(b, width + new, dtype=torch.long, device=device)
+                for i, n in enumerate(lengths):
+                    forced[i, :n] = torch.tensor(prompts[i], device=device)
+                    forced[i, n:n + new] = torch.tensor(comps[i], device=device)
+                at = torch.from_numpy(lengths).to(device)[:, None] - 1 + torch.arange(
+                    new, device=device)
+                rows_ = torch.arange(b, device=device)[:, None]
+                with torch.no_grad():
+                    ref = m_bf16(forced)[rows_, at]
+                    got = m_int8(forced)[rows_, at]
+                    # the same codes dequantized into a bf16 model: only the
+                    # product's rounding parts it from the int8 forward
+                    m_deq = model_of(cast(Q.dequantize_tree(q8, torch.float32)))
+                    deq = m_deq(forced)[rows_, at]
+                    del m_deq
+                toks = torch.tensor(comps, device=device)
+                confident = top2_gap(ref) > tol["int8_gap"]
+                diff = (got - ref).abs()
+                err["b_int8"] = {
+                    "lengths": lengths.tolist(), "generate_s": gen_s,
+                    "max_abs_logits": diff.max().item(),
+                    "rms_logits_err": diff.square().mean().sqrt().item(),
+                    "rms_vs_dequantized": (got - deq).square().mean().sqrt().item(),
+                    "ref_logit_rms": ref.square().mean().sqrt().item(),
+                    "confident_tokens": int(confident.sum()), "tokens": b * new,
+                    "confident_mismatches": int(((ref.argmax(-1) != toks) & confident).sum()),
+                    "agree_with_bf16_argmax": float((ref.argmax(-1) == toks).float().mean()),
+                    "quantized_leaves": len(Q.quantized_names(q8)),
+                    "int8_bytes": bytes_of(q8), "bf16_bytes": bytes_of(merged16)}
+                e = err["b_int8"]
+                ok["b_int8"] = (bool(torch.isfinite(got).all()) and list(toks.shape) == [b, new]
+                                and e["rms_logits_err"] <= tol["int8_rms"]
+                                and e["rms_vs_dequantized"] <= tol["int8_dequant_rms"]
+                                and e["confident_mismatches"] == 0
+                                and e["quantized_leaves"] == n_big
+                                and e["int8_bytes"] < 0.6 * e["bf16_bytes"])
+                del ref, got, deq, forced
+                lap("b_int8_check")
+                timing = {}
+                for tb in ((1, b) if cuda else ()):
+                    p = torch.from_numpy(rng.integers(0, vocab, (tb, c["time_prompt"]))).to(device)
+                    for name, m in (("bf16", m_bf16), ("int8", m_int8)):
+                        generate(m, p, 4)  # warm-up
+                        cache = init_cache(cfg, tb, device)
+                        with torch.no_grad():
+                            logits, pos = prefill(m, cache, p)
+                        tok = logits.argmax(-1)
+
+                        def one(m=m, cache=cache):
+                            nonlocal tok, pos
+                            with torch.no_grad():
+                                tok = decode_step(m, cache, tok, pos).argmax(-1)
+                            pos = pos + 1
+
+                        sync_on(cuda)
+                        t0 = time.perf_counter()
+                        for _ in range(c["time_steps"]):
+                            one()
+                        issue = (time.perf_counter() - t0) * 1e3 / c["time_steps"]
+                        sync_on(cuda)
+                        step_ms = (time.perf_counter() - t0) * 1e3 / c["time_steps"]
+                        prof = profile_steps(one, n=2, model=f"lora_{name}_decode_b{tb}")
+                        timing[f"{name}_b{tb}"] = {
+                            "step_ms": step_ms, "host_issue_ms": issue,
+                            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                            "profile_wall_ms_per_step": prof["wall_ms_per_step"],
+                            "device_idle_share": prof["device_idle_share"]}
+                        del cache
+                nums["b"] = {"timing": timing, "int8_bytes": e["int8_bytes"],
+                             "bf16_bytes": e["bf16_bytes"]}
+                del m_bf16, m_int8, q8
+                lap("b_int8_timing")
+            # the example through tfcluster.run: a process of its own, which
+            # runs beside part (e) (nothing of (e) is timed), or here
+            if "e" not in parts:
+                example_check(start_example(c["example_args"], cuda), c, ok, err)
+                lap("b_example")
+
+        if "c" in parts:
+            with Guarded("c_bank", ok, err):
+                # (c) routing in fp32: each row through the bank against its
+                # adapter merged alone
+                rows = torch.from_numpy(rng.integers(0, vocab, (c["route_rows"], c["route_len"])))
+                rows = rows.to(device)
+                ids = torch.arange(c["route_rows"], device=device) % n_slots
+                cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+                m32 = Llama(cfg32, device=device, seed=seed)
+                adopt_params(m32, bank32)
+                got = bank_forward(m32, rows, ids)
+                route_err, separation = 0.0, math.inf
+                for r in range(c["route_rows"]):
+                    k = int(ids[r])
+                    adopt_params(m32, L.merge_lora(L.select_adapter(bank32, k)))
+                    want_r = bank_forward(m32, rows[r:r + 1])[0]
+                    route_err = max(route_err, (got[r] - want_r).abs().max().item())
+                    if k:
+                        adopt_params(m32, {n: t for n, t in params.items() if n in base})
+                        effect = (bank_forward(m32, rows[r:r + 1])[0] - want_r).abs().max().item()
+                        separation = min(separation, effect)
+                del m32, got
+                err["c_bank_rows"] = {"max_abs_logits": route_err, "adapter_effect_min": separation,
+                                      "slots": n_slots}
+                ok["c_bank_rows"] = (route_err <= tol["route"]
+                                     and separation >= tol["route_separation"] * tol["route"])
+                lap("c_route")
+
+                # (c) the bank served: 8 slots, mixed adapters from 8 threads
+                bank16 = cast(bank32)
+                reqs = []
+                for i in range(c["requests"]):
+                    n = int(rng.integers(c["min_len"], c["max_len"] + 1))
+                    new = int(rng.integers(c["min_new"], c["max_new"] + 1))
+                    reqs.append({"tokens": rng.integers(0, vocab, n).tolist(),
+                                 "max_new_tokens": new, "adapter": i % n_slots})
+                eng = ContinuousBatcher(model, params=bank16, **eng_kw)
+                engines.append(eng)
+                out_b, wall_b = drive_engine(eng, reqs, c["threads"], 0.05)
+                plain = ContinuousBatcher(model, params=base16, **eng_kw)
+                engines.append(plain)
+                reqs0 = [{k: v for k, v in r.items() if k != "adapter"} for r in reqs]
+                out_p, wall_p = drive_engine(plain, reqs0, c["threads"], 0.05)
+                plain.close()
+                # references: each adapter merged alone, decoded with generate
+                cmp_ = {}
+                for k in range(n_slots):
+                    idx = [i for i, r in enumerate(reqs) if r["adapter"] == k]
+                    ref_params = base16 if k == 0 else cast(
+                        L.merge_lora(L.select_adapter(bank32, k)))
+                    mk = model_of(ref_params)
+                    ref_toks, _ = generate_text.decode_batches(
+                        mk, [reqs[i]["tokens"] for i in idx], batch_size=len(idx),
+                        width=c["widths"][-1], max_new_tokens=max(reqs[i]["max_new_tokens"]
+                                                                  for i in idx))
+                    want_k = {i: ("ok", t[:reqs[i]["max_new_tokens"]], None, None)
+                              for i, t in zip(idx, ref_toks)}
+                    got_k = {i: ("ok", out_b[i][0], out_b[i][1], out_b[i][2]) for i in idx}
+                    cmp_[k] = against_engine(mk, reqs, idx, got_k, want_k, tol)
+                    del mk
+                ttft = lambda o: float(np.percentile([v[2] for v in o.values()], 50)) * 1e3  # noqa: E731
+                ntok = lambda o: sum(len(v[0]) for v in o.values())  # noqa: E731
+                nums["c"] = {"bank_tokens_per_s": ntok(out_b) / wall_b,
+                             "plain_tokens_per_s": ntok(out_p) / wall_p,
+                             "bank_ttft_p50_ms": ttft(out_b), "plain_ttft_p50_ms": ttft(out_p),
+                             "bank_wall_s": wall_b, "plain_wall_s": wall_p}
+                err["c_serve"] = {str(k): v for k, v in cmp_.items()}
+                ok["c_serve"] = (len(out_b) == len(reqs) and all(
+                    v["confident_mismatches"] == 0 and v["max_abs_logprob"] <= tol["logprob"]
+                    for v in cmp_.values()))
+                # the prefix cache is keyed by adapter
+                pp = rng.integers(0, vocab, c["prefix_prompt"]).tolist()
+                s0 = eng.stats()
+                first = eng.submit(pp, 16, adapter=1)
+                s1 = eng.stats()
+                other = eng.submit(pp, 16, adapter=2)
+                s2 = eng.stats()
+                again = eng.submit(pp, 16, adapter=1)
+                s3 = eng.stats()
+                err["c_prefix"] = {
+                    "first_misses": s1["prefix_misses"] - s0["prefix_misses"],
+                    "other_adapter_hits": s2["prefix_hits"] - s1["prefix_hits"],
+                    "other_adapter_misses": s2["prefix_misses"] - s1["prefix_misses"],
+                    "same_adapter_hits": s3["prefix_hits"] - s2["prefix_hits"],
+                    "hit_equals_miss": again == first}
+                p_ = err["c_prefix"]
+                ok["c_prefix"] = (p_["other_adapter_hits"] == 0 and p_["other_adapter_misses"] >= 1
+                                  and p_["same_adapter_hits"] >= 1 and again == first)
+                lap("c_serve")
+
+        if "d" in parts:
+            with Guarded("d_swap", ok, err):
+                # (d) adapters only: a second bank (the adapters in another
+                # order) swapped in under traffic
+                from tensorflowonspark_tpu_torch.serving.engine import _bound_module
+
+                bank2 = cast(L.multi_lora_bank([adapters[i] for i in (2, 0, 1)]))
+                payload = rollout.lora_state(bank2)  # host copies, as a loader gives them
+                dreqs = [{**r, "max_new_tokens": min(r["max_new_tokens"], c["roll_new"])}
+                         for r in reqs[:c["roll_requests"]]]
+                # the references: v0 is (c)'s run of the same engine while it
+                # was fresh (greedy: a prefix of its longer budget), v1 a
+                # fresh engine on the second bank
+                f = ContinuousBatcher(model, params=bank2, **eng_kw)
+                try:
+                    done, _ = drive_engine(f, dreqs, c["threads"], 0.0)
+                finally:
+                    f.close()
+                fresh = {"v1": {i: t for i, (t, _, _) in done.items()},
+                         "v0": {i: out_b[i][0][:r["max_new_tokens"]] for i, r in enumerate(dreqs)}}
+                _, before = eng.current_weights()
+                old_factors = {n: before[n].clone() for n in payload}
+                done0 = eng.completed
+                stop, started, res = threading.Event(), threading.Event(), {}
+
+                def traffic():
+                    res["out"], res["wall"], res["ended"] = version_traffic(
+                        eng, dreqs, c["roll_threads"], until=stop, started=started)
+
+                tr = threading.Thread(target=traffic)
+                tr.start()
+                started.wait(timeout=300)
+                deadline = time.perf_counter() + 300
+                while eng.completed < done0 + c["roll_threads"] and time.perf_counter() < deadline:
+                    time.sleep(0.01)  # some requests finish under v0 first
+                t0 = time.perf_counter()
+                eng.swap_weights(payload, version="v1", kind="lora")
+                t1 = time.perf_counter()
+                lora_traffic_s = t1 - t0
+                time.sleep(0.5)
+                stop.set()
+                tr.join(timeout=900)
+                _, after = eng.current_weights()
+                bases = [n for n in after if n not in payload]
+                same_storage = all(after[n] is before[n] for n in bases)
+                intact = (all(torch.equal(before[n], bank16[n]) for n in bases)
+                          and all(torch.equal(before[n], old_factors[n]) for n in payload))
+                mods = {"v0": _bound_module(model, before), "v1": _bound_module(model, after)}
+                # a request that ended before the install decoded under v0
+                # alone, one that started after it under v1 alone; one that
+                # spans it may decode under both (the engine drains no
+                # request at a swap: a fleet's controller does) and is only
+                # held to its stamp
+                rows_, spanning, stamps = {}, 0, {}
+                for (rnd, i), o in res.get("out", {}).items():
+                    stamps[o[4]] = stamps.get(o[4], 0) + 1
+                    if o[0] != "ok" or o[4] not in fresh:
+                        continue
+                    if o[5] < t1 and o[6] > t0:
+                        spanning += 1
+                        continue
+                    ref = fresh[o[4]][i]
+                    tf = bank_teacher_forced(mods[o[4]], dreqs[i]["tokens"], ref,
+                                             dreqs[i]["adapter"])
+                    rows_[(rnd, i)] = hold_to_reference(o[1], o[2], tf, ref, tol)
+                del mods
+                # the install alone on the idle engine, from host memory: the
+                # adapters (payload) against the whole weight set
+                t0 = time.perf_counter()
+                eng.swap_weights(rollout.lora_state(bank16), version="v2", kind="lora")
+                lora_idle_s = time.perf_counter() - t0
+                host_full = {n: t.to("cpu") for n, t in bank2.items()}
+                t0 = time.perf_counter()
+                eng.swap_weights(host_full, version="v3")
+                full_idle_s = time.perf_counter() - t0
+                del host_full
+                err["d_swap"] = {"stamps": stamps, "requests": len(res.get("out", {})),
+                                 "spanning": spanning,
+                                 "errors": [o for o in res.get("out", {}).values()
+                                            if o[0] != "ok"][:3],
+                                 "confident_mismatches": sum(r["confident_mismatches"]
+                                                             for r in rows_.values()),
+                                 "compared": len(rows_),
+                                 "max_abs_logprob": max((r["max_abs_logprob"] for r in
+                                                         rows_.values()), default=0.0)}
+                err["d_prior_intact"] = {"bases_same_storage": same_storage,
+                                         "prior_bit_equal": intact}
+                d_ = err["d_swap"]
+                ok["d_swap"] = (bool(res.get("ended")) and not d_["errors"]
+                                and set(stamps) <= {"v0", "v1"} and stamps.get("v0", 0) >= 1
+                                and stamps.get("v1", 0) >= 1
+                                and d_["compared"] + spanning == d_["requests"]
+                                and d_["confident_mismatches"] == 0
+                                and d_["max_abs_logprob"] <= tol["logprob"])
+                ok["d_prior_intact"] = same_storage and intact
+                nums["d"] = {"lora_install_under_traffic_s": lora_traffic_s,
+                             "lora_install_idle_s": lora_idle_s,
+                             "full_install_idle_s": full_idle_s,
+                             "lora_payload_bytes": sum(t.numel() * t.element_size()
+                                                       for t in payload.values()),
+                             "full_bytes": sum(t.numel() * t.element_size()
+                                               for t in bank2.values())}
+                eng.close()
+                del before, after
+                lap("d_swap")
+
+            with Guarded("d_fleet", ok, err):
+                # (d) a RolloutController of kind lora from a channel across
+                # an in-process two-seat fleet
+                def factory():
+                    return ContinuousBatcher(model, params=bank16, **eng_kw)
+
+                fleet = ServingFleet(factory=factory, replicas=c["replicas"],
+                                     probe_interval=c["probe_s"], drain_timeout=c["drain_s"])
+                router = FleetRouter(fleet)
+                seat_w = {v["rid"]: v["handle"].engine.current_weights()[1]
+                          for v in fleet.views()}
+                ch = os.path.join(tmp, "channel")
+                ctl = rollout.RolloutController(
+                    fleet, channel_dir=ch, loader=rollout.checkpoint_loader(bank16),
+                    poll_interval=c["poll_s"], drain_timeout=c["drain_s"])
+                ctl.start()
+                stop, started, res = threading.Event(), threading.Event(), {}
+
+                def traffic():
+                    res["out"], res["wall"], res["ended"] = version_traffic(
+                        router, dreqs, c["roll_threads"], until=stop, started=started)
+
+                tr = threading.Thread(target=traffic)
+                tr.start()
+                started.wait(timeout=300)
+                t0 = time.perf_counter()
+                rollout.publish_params(ch, payload, version="v1", kind="lora")
+                waited = wait_outcome(ctl, "completed", 1, c["roll_wait_s"])
+                roll_s = time.perf_counter() - t0
+                stop.set()
+                tr.join(timeout=900)
+                rows_, stamps = {}, {}
+                for (rnd, i), o in res.get("out", {}).items():
+                    stamps[o[4]] = stamps.get(o[4], 0) + 1
+                    if o[0] != "ok" or o[4] not in fresh:
+                        continue
+                    rows_[(rnd, i)] = (o[1], fresh[o[4]][i], i, o[4], o[2])
+                # every resolved request against the fresh engine of its version
+                checked = {}
+                refmods = {"v0": _bound_module(model, seat_w[0]),
+                           "v1": _bound_module(model, {**seat_w[0], **{
+                               n: t.to(device) for n, t in payload.items()}})}
+                for key, (toks, ref, i, ver, lps) in rows_.items():
+                    tf = bank_teacher_forced(refmods[ver], dreqs[i]["tokens"], ref,
+                                             dreqs[i]["adapter"])
+                    checked[key] = hold_to_reference(toks, lps, tf, ref, tol)
+                kept = all(v["handle"].engine.current_weights()[1][n] is seat_w[v["rid"]][n]
+                           for v in fleet.views() for n in seat_w[v["rid"]] if n not in payload)
+                st = ctl.stats()
+                err["d_fleet"] = {"outcome_wait_s": waited, "stamps": stamps,
+                                  "errors": [o for o in res.get("out", {}).values()
+                                             if o[0] != "ok"][:3],
+                                  "compared": len(checked),
+                                  "confident_mismatches": sum(r["confident_mismatches"]
+                                                              for r in checked.values()),
+                                  "bases_kept": kept, "applied": st["applied"]}
+                f_ = err["d_fleet"]
+                ok["d_fleet"] = (waited is not None and bool(res.get("ended"))
+                                 and not f_["errors"] and set(stamps) <= {"v0", "v1"}
+                                 and stamps.get("v1", 0) >= 1 and f_["confident_mismatches"] == 0
+                                 and kept and st["applied"] == {str(r): "v1"
+                                                                for r in range(c["replicas"])})
+                nums["d"] = {**nums.get("d", {}), "fleet_roll_s": roll_s,
+                             "fleet_requests": len(res.get("out", {}))}
+                ctl.stop()
+                ctl = None
+                router.close()
+                router = None
+                fleet.close()
+                fleet = None
+                del refmods
+                lap("d_fleet")
+
+        if "e" in parts:
+            example = start_example(c["example_args"], cuda) if "b" in parts else None
+            with Guarded("e_server", ok, err):
+                # (e) serve_model in process over a bank checkpoint
+                ckpt = save_checkpoint(os.path.join(tmp, "bank"), {"params": bank16})
+                lora_ckpt = save_checkpoint(os.path.join(tmp, "adapters"), payload)
+                gen_ = dict(checkpoint=ckpt, model=model_flag,
+                            config_overrides=cli_overrides(cfg, preset), device=device.type,
+                            engine="continuous", widths=",".join(map(str, c["widths"])),
+                            slots=c["slots"], batch_size=c["slots"], max_new_tokens=c["budget"],
+                            decode_block=c["block"], pipeline_depth=c["depth"],
+                            prefill_chunk=c["chunk"], prefix_cache=c["prefix"],
+                            lora_scale=1.0, admin_token="lora-smoke")
+                # a request of (d) with adapter 2: its engine completions
+                # under each bank are (d)'s references (an engine's greedy
+                # row does not depend on its batchmates: every step runs
+                # all slots, every prefill one row)
+                i2 = next(i for i, r in enumerate(dreqs) if r["adapter"] == min(2, n_slots - 1))
+                r2, k2 = dreqs[i2], dreqs[i2]["adapter"]
+                want_v0, want_v1 = fresh["v0"][i2], fresh["v1"][i2]
+                with Serving(gen_) as srv:
+                    body = {"prompts": [r2["tokens"]], "max_new_tokens": r2["max_new_tokens"],
+                            "adapter": k2}
+                    code_g, text_g = http(srv.url, "/generate", body)
+                    code_bad, _ = http(srv.url, "/generate", {**body, "adapter": 9})
+                    score_rows = [r["tokens"][:200] + [1, 2, 3] for r in reqs[:c["score_rows"]]]
+                    with windows:
+                        code_sc, text_sc = http(srv.url, "/score", {"sequences": score_rows})
+                        sync_on(cuda)
+                        score_launches = {**fa.LAUNCHES, **bn_kernels.LAUNCHES}
+                    code_r, _ = http(srv.url, "/admin/reload",
+                                     {"version": "adapters-v1", "path": lora_ckpt, "kind": "lora"},
+                                     headers={"Authorization": "Bearer lora-smoke"})
+                    code_g1, text_g1 = http(srv.url, "/generate", body)
+                score_width = serve_model.score_width(c["widths"][-1], c["budget"],
+                                                      cfg.max_seq_len)
+                m0 = model_of(base16)
+                retarget(m0, dataclasses.replace(cfg, attention_impl="xla"))
+                lp_plain = generate_text.build_score_fn(m0, width=score_width,
+                                                        bsz=c["slots"])(score_rows)
+                del m0
+                lp = json.loads(text_sc)["logprobs"] if code_sc == 200 else []
+                score_err = max((float(np.abs(np.array(a) - np.array(b)).max())
+                                 for a, b in zip(lp, lp_plain)), default=math.inf)
+                g0 = json.loads(text_g)["completions"][0] if code_g == 200 else None
+                g1 = json.loads(text_g1)["completions"][0] if code_g1 == 200 else None
+                err["e_server"] = {"generate": code_g, "adapter_equal": g0 == want_v0,
+                                   "adapter_9": code_bad, "reload": code_r,
+                                   "after_reload_equal": g1 == want_v1,
+                                   "score_width": score_width, "score_launches": score_launches,
+                                   "score_max_abs_logprob": score_err}
+                e_ = err["e_server"]
+                ok["e_server"] = (g0 == want_v0 and code_bad == 400 and code_r in (200, 202)
+                                  and g1 == want_v1 and score_err <= tol["score"]
+                                  and score_launches == {"fwd": tol["score_launches_per_call"],
+                                                         "dq": 0, "dkv": 0, "pair": 0,
+                                                         "cross": 0})
+            if example is not None:
+                example_check(example, c, ok, err)
+            lap("e_server_and_example")
+    finally:
+        if ctl is not None:
+            ctl.stop()
+        if router is not None:
+            router.close()
+        if fleet is not None:
+            fleet.close()
+        for eng in engines:
+            eng.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    nums["peak_mem_gb"] = peak or None
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["launches"] = windows.total
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "lora", "part": "numbers", **nums})
+    good = bool(ok) and all(ok.values())
+    emit({"phase": "lora", "case": "lora_checks", "seed": seed, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "rank": c["rank"], "parts": parts, "checks": ok,
+          "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("lora phase failed: " + ", ".join(k for k, v in ok.items() if not v))
+    return windows.total
+
+
 def decode_seeds(fa, seeds: list[int]) -> int:
     """Phase decode alone at each of ``seeds`` (weights and data), to read
     the spread of its checks against ``DECODE_TOL``: every seed's check
@@ -4745,6 +5533,7 @@ def decode_seeds(fa, seeds: list[int]) -> int:
 
 
 def main(argv: list[str]) -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4773,26 +5562,31 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     score = phase_decode(fa)
     torch.cuda.empty_cache()
-    # phases serve and fleet at half depth keep the whole script near 900 s
-    # with phase rollout at full depth (PERF.md, Findings)
+    # phases serve, fleet and rollout at half depth keep the whole script
+    # under its limit with phase lora at full depth (PERF.md, Findings)
     serve = phase_serve(fa, layers=SERVING_DEPTH)
     torch.cuda.empty_cache()
     fleet = phase_fleet(fa, layers=SERVING_DEPTH)
     torch.cuda.empty_cache()
-    rollout = phase_rollout(fa)
+    rollout = phase_rollout(fa, layers=SERVING_DEPTH)
+    torch.cuda.empty_cache()
+    lora = phase_lora(fa, train_step_ms=train_step_ms)
+    emit({"phase": "script", "wall_s": time.perf_counter() - t_script})
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
          "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
          "score_launches": score[kind], "serve_launches": serve[kind],
-         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind], **rows[kind]}
+         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind],
+         "lora_launches": lora[kind], **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
          "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind],
          "score_launches": score[kind], "serve_launches": serve[kind],
-         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind], **bn_rows[kind]}
+         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind],
+         "lora_launches": lora[kind], **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)

@@ -31,10 +31,19 @@ What is ported:
   ``serving.router.FleetRouter`` (placement, shedding, failover), and the
   cache tier ``cachetier`` (store, TCP daemon, clients) with its
   fleet-global prefix L2 ``cachetier.prefix.PrefixL2``;
-  ``serve_model --gen-replicas N --cachetier-l2 HOST:PORT`` serves them.
+  ``serve_model --gen-replicas N --cachetier-l2 HOST:PORT`` serves them;
+- weight rollout: ``serving.rollout.RolloutController`` and the
+  publication channel, ``serve_model``'s ``/admin/reload``;
+- LoRA and int8 weights: ``ops.lora`` (adapters fine-tuned with a frozen
+  base through ``lora_optimizer``, merged, or served as a bank per
+  request and rolled adapters-only) and ``ops.quant`` (int8 weight-only
+  decode), consumed by ``models.llama``, the engine, the server, the
+  decode CLI and the example.
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item. Importing the package imports nothing heavy and builds no kernel.
+item: speculative decoding, MoE experts and sequence or pipeline parallel
+(A10), and decode on a device mesh (A9b). Importing the package imports
+nothing heavy and builds no kernel.
 """
 
 from __future__ import annotations

@@ -28,6 +28,15 @@ import torch
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # params -> the names of the leaves this transformation freezes (its
+    # update of them is zero), or None: it freezes nothing
+    frozen: Optional[Callable] = None
+
+
+def frozen_names(tx: GradientTransformation, params) -> set:
+    """The leaves of ``params`` that ``tx`` never changes: the train step
+    takes no gradient of them and leaves them out of the update."""
+    return set(tx.frozen(params)) if tx.frozen is not None else set()
 
 
 def _map(fn, *trees):
@@ -53,7 +62,10 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
             new_state.append(s)
         return updates, tuple(new_state)
 
-    return GradientTransformation(init, update)
+    def frozen(params):
+        return set().union(*(frozen_names(tx, params) for tx in txs))
+
+    return GradientTransformation(init, update, frozen)
 
 
 class ScaleByAdamState(NamedTuple):
@@ -267,14 +279,76 @@ def mixed_precision_adamw(
     return GradientTransformation(init, update)
 
 
+def set_to_zero() -> GradientTransformation:
+    """optax ``set_to_zero``: every update zero, no state; it freezes every
+    leaf it is given."""
+    return GradientTransformation(
+        lambda params: EmptyState(),
+        lambda updates, state, params=None: (_map(torch.zeros_like, updates), state),
+        lambda params: set(params),
+    )
+
+
+class MultiTransformState(NamedTuple):
+    inner_states: Any  # label -> the state of that label's transformation
+
+
+def multi_transform(transforms: dict, param_labels) -> GradientTransformation:
+    """optax ``multi_transform``: each leaf goes through the transformation
+    of its label (``param_labels``: name -> label, or a function of the
+    params giving that), whose state covers its own leaves alone. An
+    update that holds only some leaves (the train step leaves the frozen
+    ones out) updates only those."""
+
+    def labels_of(params):
+        labels = param_labels(params) if callable(param_labels) else param_labels
+        unlabelled = [n for n in params if n not in labels]
+        if unlabelled:
+            raise KeyError(f"multi_transform: no label for {unlabelled[:5]}")
+        unknown = {labels[n] for n in params} - set(transforms)
+        if unknown:
+            raise KeyError(f"multi_transform: no transformation for labels {sorted(unknown)}")
+        return labels
+
+    def split(tree, labels, label):
+        return {n: t for n, t in tree.items() if labels[n] == label}
+
+    def init(params):
+        labels = labels_of(params)
+        parts = {label: split(params, labels, label) for label in transforms}
+        # a label with no leaves holds no state (its transformation never runs)
+        return MultiTransformState({label: tx.init(parts[label]) if parts[label] else None
+                                    for label, tx in transforms.items()})
+
+    def update(updates, state, params=None):
+        labels = labels_of(updates)
+        out, inner = {}, dict(state.inner_states)
+        for label, tx in transforms.items():
+            part = split(updates, labels, label)
+            if not part:
+                continue
+            sub_params = None if params is None else {n: params[n] for n in part}
+            upd, inner[label] = tx.update(part, inner[label], sub_params)
+            out.update(upd)
+        return {n: out[n] for n in updates}, MultiTransformState(inner)
+
+    def frozen(params):
+        labels = labels_of(params)
+        return set().union(*(frozen_names(tx, split(params, labels, label))
+                             for label, tx in transforms.items()))
+
+    return GradientTransformation(init, update, frozen)
+
+
 @torch.no_grad()
 def apply_updates(params, updates) -> None:
     """``p ← (p + u)`` cast to p's dtype, in place: the port updates the
     params where they lie instead of allocating a second copy. An update
     laid out otherwise than its DTensor param (the ZeRO update layout) is
-    gathered to the param's placements first."""
-    for name, p in params.items():
-        u = updates[name]
+    gathered to the param's placements first. A leaf with no update (a
+    frozen one) is left as it is."""
+    for name, u in updates.items():
+        p = params[name]
         placements = getattr(p, "placements", None)
         if placements is not None and tuple(u.placements) != tuple(placements):
             u = u.redistribute(p.device_mesh, placements)

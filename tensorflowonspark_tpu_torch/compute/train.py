@@ -46,7 +46,11 @@ import torch
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.compute import layout as _layout
-from tensorflowonspark_tpu_torch.compute.optim import GradientTransformation, apply_updates
+from tensorflowonspark_tpu_torch.compute.optim import (
+    GradientTransformation,
+    apply_updates,
+    frozen_names,
+)
 from tensorflowonspark_tpu_torch.obs import spans as obs_spans
 from tensorflowonspark_tpu_torch.parallel.context import is_dtensor, mesh_region, use_mesh
 
@@ -103,12 +107,13 @@ def state_shardings(state: TrainState, mesh, param_shardings, zero_sharding: boo
     whose tensor leaves are :class:`layout.Sharding`.
     """
     names = set(state.params)
-    multi_leaf = len(names) > 1
 
     def mirrors_params(node, path: str) -> bool:
-        if not isinstance(node, dict) or set(node) != names:
+        # a dict keyed by params: all of them, or the trained ones of a
+        # multi_transform (a LoRA fine-tune's adapters)
+        if not isinstance(node, dict) or not node or not set(node) <= names:
             return False
-        return multi_leaf or bool(_PER_PARAM_STATE_RE.search(path))
+        return len(node) > 1 or bool(_PER_PARAM_STATE_RE.search(path))
 
     def rec(node, path: str):
         if mirrors_params(node, path):
@@ -249,11 +254,16 @@ def _split(batch, n):
     return _chunks(batch, n)
 
 
-def _value_and_grad(loss_fn, params, *args, has_aux=False):
+def _value_and_grad(loss_fn, params, *args, has_aux=False, frozen=frozenset()):
     """``(loss, grads)``, or ``((loss, aux), grads)`` when ``loss_fn``
-    returns ``(loss, aux)``."""
-    names = list(params)
+    returns ``(loss, aux)``. The leaves named in ``frozen`` (those the
+    optimizer never changes: a LoRA fine-tune's base) do not require grad,
+    so autograd builds none of their gradient products, and ``grads``
+    leaves them out; every other leaf gets a gradient (zeros if unused)."""
+    names = [n for n in params if n not in frozen]
     leaves = [params[n] for n in names]
+    for n in frozen:
+        params[n].requires_grad_(False)
     for p in leaves:
         p.requires_grad_(True)
     out = loss_fn(params, *args)
@@ -313,13 +323,13 @@ def make_step_fn(loss_fn, optimizer, mesh=None, accum_steps: int = 1, batch_weig
 
     def grads_of(params, batch):
         if accum_steps == 1:
-            return _value_and_grad(loss_fn, params, batch)
+            return _value_and_grad(loss_fn, params, batch, frozen=cache["frozen"])
         dev = next(iter(params.values())).device
         loss_sum = torch.zeros((), device=dev)
         w_sum = torch.zeros((), device=dev)
         grad_sum = None
         for mb in _split(batch, accum_steps):
-            loss, grads = _value_and_grad(loss_fn, params, mb)
+            loss, grads = _value_and_grad(loss_fn, params, mb, frozen=cache["frozen"])
             w = (torch.ones((), device=dev) if batch_weight_fn is None
                  else _loss_value(batch_weight_fn(mb)).float())
             loss_sum = loss_sum + _loss_value(loss) * w
@@ -338,6 +348,7 @@ def make_step_fn(loss_fn, optimizer, mesh=None, accum_steps: int = 1, batch_weig
         if "layout" not in cache:
             psh = None if mesh is None else _param_shardings(mesh, param_shardings, state.params)
             cache["layout"] = _grad_layout(mesh, psh, zero_sharding)
+            cache["frozen"] = frozen_names(optimizer, state.params)
         if mesh is None:
             batch = _to_device(batch, device)
             loss, grads = grads_of(state.params, batch)
@@ -416,10 +427,11 @@ def build_bn_train_step(
     cache: dict = {}
 
     def step(state: TrainState, batch_stats, batch):
+        frozen = frozen_names(optimizer, state.params)
         if mesh is None:
             batch = _to_device(batch, device)
             (loss, new_stats), grads = _value_and_grad(
-                loss_fn, state.params, batch_stats, batch, has_aux=True
+                loss_fn, state.params, batch_stats, batch, has_aux=True, frozen=frozen
             )
             return _apply_weight_update(optimizer, state, grads), new_stats, loss
         if "layout" not in cache:
@@ -428,7 +440,7 @@ def build_bn_train_step(
         batch = _on_mesh(batch, mesh)
         with use_mesh(mesh), mesh_region(*state.params.values()):
             (loss, new_stats), grads = _value_and_grad(
-                loss_fn, state.params, batch_stats, batch, has_aux=True
+                loss_fn, state.params, batch_stats, batch, has_aux=True, frozen=frozen
             )
             grads = cache["layout"](grads)
         new_stats = {k: _loss_value(v) for k, v in new_stats.items()}

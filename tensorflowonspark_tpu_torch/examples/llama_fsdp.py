@@ -17,11 +17,17 @@ decodes N tokens after a seeded (2, 8) prompt with the trained weights
 (``models.llama.generate``, KV-cache decode) and prints the same line as the
 JAX example.
 
+``--lora-rank R`` fine-tunes rank-R adapters (``ops.lora.add_lora`` on the
+seed-0 weights, factors drawn from a generator seeded 1) with
+``lora_optimizer``: the base gets no gradient and no optimizer moment.
+With ``--generate`` the adapters are merged first (``merge_lora``), and
+``--quantize-decode`` then decodes int8 weights (``ops.quant.quantize_tree``)
+and prints how many it quantized, as the JAX example does.
+
 Same flags and defaults as the JAX example, except ``--peak-tflops``. Not
 ported yet, each raising ``NotImplementedError``: ``--sp`` above 1
 (sequence parallel, ROADMAP A10), ``--generate`` on a mesh of more than one
-rank (mesh decode, A9b), ``--lora-rank`` and ``--quantize-decode`` (A10),
-``--packed`` (A12).
+rank (mesh decode, A9b), ``--packed`` (A12).
 
 Usage::
 
@@ -83,8 +89,6 @@ def _refuse_unported(args, world: int = 1) -> None:
         (args.sp > 1, "--sp above 1 (sequence parallel)", "A10"),
         (bool(args.generate) and world > 1, "--generate on a mesh of more than one rank "
          "(mesh decode)", "A9b"),
-        (bool(args.lora_rank), "--lora-rank", "A10"),
-        (args.quantize_decode, "--quantize-decode", "A10"),
         (args.packed, "--packed (data/packing.py)", "A12"),
     ]
     for hit, what, item in refused:
@@ -110,6 +114,7 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.compute.train import shard_state
     from tensorflowonspark_tpu_torch.models.llama import (
         Llama,
+        adopt_params,
         llama_loss_fn,
         llama_param_shardings,
     )
@@ -128,6 +133,13 @@ def main_fun(args, ctx):
 
     rng = np.random.default_rng(ctx.executor_id)
     params = dict(model.named_parameters())
+    if args.lora_rank:
+        from tensorflowonspark_tpu_torch.ops.lora import add_lora
+
+        # parameter-efficient fine-tune: only rank-r adapters train; the
+        # frozen base carries no gradients and no optimizer moments
+        gen = torch.Generator(device=device).manual_seed(1)
+        params = adopt_params(model, add_lora(params, rank=int(args.lora_rank), generator=gen))
     n_params = sum(p.numel() for p in params.values())
 
     moment_dtype = torch.bfloat16 if args.moments == "bf16" else None
@@ -155,6 +167,11 @@ def main_fun(args, ctx):
     if args.clip > 0:
         # global-norm clip BEFORE the optimizer
         tx = optim.chain(optim.clip_by_global_norm(float(args.clip)), tx)
+    if args.lora_rank:
+        from tensorflowonspark_tpu_torch.ops.lora import lora_optimizer
+
+        # moments for the adapters alone
+        tx = lora_optimizer(tx, params)
     psh = llama_param_shardings(params, mesh)
     # every tensor of the state placed on the mesh, the params also in the
     # model (its remat recomputes blocks from its own parameters)
@@ -225,17 +242,33 @@ def main_fun(args, ctx):
 
 def _generate(args, cfg, state, device):
     """Decode ``--generate`` tokens after a seeded (2, 8) prompt with the
-    trained params (a mesh of one rank: each DTensor is its whole tensor)."""
+    trained params (a mesh of one rank: each DTensor is its whole tensor),
+    the adapters merged (``--lora-rank``) and the weights int8
+    (``--quantize-decode``)."""
     import numpy as np
     import torch
 
-    from tensorflowonspark_tpu_torch.models.llama import Llama, generate
+    from tensorflowonspark_tpu_torch.models.llama import Llama, adopt_params, generate
 
-    model = Llama(cfg, device=device)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            src = state.params[name]
-            p.copy_(src.full_tensor() if hasattr(src, "full_tensor") else src)
+        params = {n: (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+                  for n, t in state.params.items()}
+    if args.lora_rank:
+        from tensorflowonspark_tpu_torch.ops.lora import merge_lora
+
+        # fold the adapters into plain weights: no adapter products in
+        # decode, and quantize_tree takes the merged weights
+        params = merge_lora(params)
+    if args.quantize_decode:
+        from tensorflowonspark_tpu_torch.ops.quant import quantize_tree, quantized_names
+
+        params = quantize_tree(params)
+        n_q = len(quantized_names(params))
+        print(f"quantized {n_q} weight tensors for decode"
+              + (" (NONE met quantize_tree's size threshold — tiny configs decode unquantized)"
+                 if n_q == 0 else ""))
+    model = Llama(cfg, device=device)
+    adopt_params(model, params)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 8))
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.time()
@@ -300,7 +333,8 @@ def parse_args(argv=None):
     p.add_argument("--logit-chunk", type=int, default=None,
                    help="chunked-CE chunk length; skips the (B,S,V) fp32 logits")
     p.add_argument("--lora-rank", type=int, default=0,
-                   help="rank-R LoRA adapters (not ported: A10; 0 = full fine-tune)")
+                   help="fine-tune rank-R LoRA adapters (ops/lora.py) instead of every "
+                   "weight: only adapters train (0 = full fine-tune)")
     p.add_argument("--model-dir", default=None)
     p.add_argument("--save-every", type=int, default=0,
                    help="mid-training checkpoint interval in steps (0: only at end)")
@@ -311,7 +345,8 @@ def parse_args(argv=None):
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--quantize-decode", action="store_true",
-                   help="int8 weight-only decode (not ported: A10)")
+                   help="with --generate: decode int8 weight-only (ops/quant.py; "
+                   "merged adapters first)")
     p.add_argument("--peak-tflops", type=float, default=H100_BF16_PEAK_TFLOPS,
                    help="per-device bf16 peak (default: H100 SXM dense)")
     p.add_argument(

@@ -15,8 +15,20 @@ back. Two families:
 
 Dense kernels are stored ``(in, out)`` in flax and ``(out, in)`` in the
 port, so they are transposed, as is Llama's ``(hidden, vocab)`` output
-head; conv kernels go HWIO ↔ OIHW. Any leaf that maps to nothing raises;
-int8 (``QuantTensor``) and LoRA kernels raise ``NotImplementedError``.
+head; conv kernels go HWIO ↔ OIHW. Any leaf that maps to nothing raises.
+
+Int8 and LoRA leaves (``ops.quant``, ``ops.lora``) move both ways. From
+the JAX package: a ``QuantTensor`` (or its checkpoint form ``{"q",
+"scale"}``) becomes the port's codes under the leaf's name and scales
+under ``name + "_scale"``, transposed with the leaf, so the JAX package's
+axis -1 of a kernel (and of the head) is the port's axis 0; a
+``LoraTensor`` / ``MultiLoraTensor`` (or ``{"base", "a", "b"}``, whose
+scale the checkpoint does not store: 1.0) becomes the base under the
+leaf's name and ``_lora_a`` ``(r, in)``, ``_lora_b`` ``(out, r)`` (banks
+``(K, r, in)``, ``(K, out, r)``) and a 0-d ``_lora_scale``. Back to the
+JAX package the nodes come out in their checkpoint forms, ``{"q",
+"scale"}`` and ``{"base", "a", "b"}`` (the scale dropped, as orbax drops
+it: the JAX package's ``rewrap_lora`` re-supplies it).
 
 ``cache_from_jax``/``cache_to_jax`` carry a Llama decode cache (the flax
 ``cache`` collection, ``layer{i}/attn/{k,v,k_scale,v_scale,seg,pos,idx}``)
@@ -33,6 +45,9 @@ import re
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch.ops import lora as _lora
+from tensorflowonspark_tpu_torch.ops import quant as _quant
+
 _LAYER = re.compile(r"layer(\d+)$")
 _CONV_KERNEL = re.compile(r"(?:(?:Conv|Dense)_\d+|head)$")
 _BATCH_NORM = re.compile(r"BatchNorm_\d+$")
@@ -43,13 +58,59 @@ _DENSE = {
 }
 
 
+_QUANT_KEYS, _LORA_KEYS = {"q", "scale"}, {"base", "a", "b"}
+
+
 def _flatten(tree, prefix=()):
     for key, val in tree.items():
         path = prefix + (str(key),)
-        if isinstance(val, dict):
+        if isinstance(val, dict) and set(val) not in (_QUANT_KEYS, _LORA_KEYS):
             yield from _flatten(val, path)
         else:
             yield path, val
+
+
+def _field(leaf, name):
+    return leaf[name] if isinstance(leaf, dict) else getattr(leaf, name)
+
+
+def _is_quant(leaf) -> bool:
+    return set(leaf) == _QUANT_KEYS if isinstance(leaf, dict) else hasattr(leaf, "q")
+
+
+def _is_lora(leaf) -> bool:
+    return set(leaf) == _LORA_KEYS if isinstance(leaf, dict) else hasattr(leaf, "base")
+
+
+def _np32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _factors_from_flax(a, b):
+    """JAX ``a`` (in, r) / (K, in, r) and ``b`` (r, out) / (K, r, out) ->
+    the port's (r, in) / (K, r, in) and (out, r) / (K, out, r)."""
+    a, b = _np32(a), _np32(b)
+    return np.swapaxes(a, -1, -2).copy(), np.swapaxes(b, -1, -2).copy()
+
+
+def _node_from_jax(name: str, transpose: bool, leaf) -> dict:
+    """The port entries of one int8 or LoRA node of the JAX package."""
+    if _is_quant(leaf):
+        q = np.asarray(_field(leaf, "q"), dtype=np.int8)
+        scale = _np32(_field(leaf, "scale"))
+        if transpose:
+            q, scale = q.T.copy(), scale.T.copy()
+        return {name: torch.tensor(q), name + _quant.SCALE: torch.tensor(scale)}
+    if not transpose:
+        raise KeyError(f"{name}: a LoRA node on a leaf that is not a dense kernel")
+    a, b = _factors_from_flax(_field(leaf, "a"), _field(leaf, "b"))
+    scale = 1.0 if isinstance(leaf, dict) else float(leaf.scale)
+    return {
+        name: torch.tensor(_from_flax(_np32(_field(leaf, "base")))),
+        name + _lora.A: torch.tensor(a),
+        name + _lora.B: torch.tensor(b),
+        name + _lora.S: torch.tensor(scale, dtype=torch.float32),
+    }
 
 
 def _biased(owner: str) -> bool:
@@ -108,13 +169,13 @@ def params_from_jax(tree, mesh=None, table: str | None = None) -> dict[str, torc
         return {n: place(t, shs[n]) for n, t in plain.items()}
     out = {}
     for path, leaf in _flatten(tree):
-        if not hasattr(leaf, "__array__"):
-            # QuantTensor / LoraTensor / MultiLoraTensor kernels
-            raise NotImplementedError(
-                f"{type(leaf).__name__} at {'/'.join(path)}: int8 and LoRA kernels are "
-                "not ported yet: ROADMAP A10"
-            )
         name, transpose = _port_name(path)
+        if isinstance(leaf, dict) or not hasattr(leaf, "__array__"):
+            # QuantTensor / LoraTensor / MultiLoraTensor, or a checkpoint's dict of one
+            if not (_is_quant(leaf) or _is_lora(leaf)):
+                raise KeyError(f"{type(leaf).__name__} at {'/'.join(path)} is no param leaf")
+            out.update(_node_from_jax(name, transpose, leaf))
+            continue
         arr = np.asarray(leaf, dtype=np.float32)
         out[name] = torch.tensor(_from_flax(arr) if transpose else arr)
     return out
@@ -175,8 +236,28 @@ def _conv_leaf(parts: list[str]) -> tuple[str, bool] | None:
     return None
 
 
+# an int8 or LoRA entry's suffix -> the JAX node's field; the LoRA scale is
+# a static field there (the layout tables see it as a replicated scalar)
+_NODE_FIELDS = ((_lora.A, "a"), (_lora.B, "b"), (_lora.S, "scale"), (_quant.SCALE, "scale"))
+
+
+def _node_field(name: str) -> tuple[str, str] | None:
+    """(base name, JAX field) for an int8 or LoRA entry's name, else None."""
+    for sfx, field in _NODE_FIELDS:
+        base = name[: -len(sfx)]
+        if name.endswith(sfx) and (base in ("embed", "lm_head") or base.endswith(".weight")):
+            return base, field
+    return None
+
+
 def _jax_path(name: str) -> tuple[list[str], bool]:
-    """(flax path parts, transposed) for one port parameter name."""
+    """(flax path parts, transposed) for one port parameter name; an int8
+    or LoRA entry is the field of its node under the kernel's path."""
+    node = _node_field(name)
+    if node is not None:
+        base, field = node
+        parts, transposed = _jax_path(base)
+        return parts + [field], transposed and name != base + _lora.S
     parts = name.split(".")
     conv = _conv_leaf(parts)
     if conv is not None:
@@ -208,6 +289,8 @@ def jax_leaf(name: str, shape: tuple) -> tuple[str, tuple, tuple]:
         perm = tuple(range(ndim))
     elif ndim == 2:
         perm = (1, 0)  # (out, in) <- (in, out)
+    elif ndim == 3:
+        perm = (0, 2, 1)  # a bank's factors: the slot dim leads
     elif ndim == 4:
         perm = (3, 2, 0, 1)  # OIHW <- HWIO
     else:
@@ -228,12 +311,30 @@ def _host(t) -> np.ndarray:
 
 def params_to_jax(model) -> dict:
     """Port model (or a dict of its parameters, plain or DTensors) ->
-    flax-shaped nested dict of numpy."""
+    flax-shaped nested dict of numpy; int8 and LoRA leaves as the JAX
+    package's checkpoint forms ``{"q", "scale"}`` and ``{"base", "a",
+    "b"}``."""
+    tensors = _tensors(model, buffers=False)
     tree: dict = {}
-    for name, t in _tensors(model, buffers=False).items():
+    for name, t in tensors.items():
+        if _node_field(name) is not None and _node_field(name)[0] in tensors:
+            continue  # carried with its base
         parts, transposed = _jax_path(name)
-        arr = _host(t)
-        _nest(tree, parts, _to_flax(arr) if transposed else arr)
+        qt = _quant.quant_of(tensors, name)
+        w = _lora.lora_of(tensors, name) if qt is None else None
+        if qt is not None:
+            q = qt.q.detach().cpu().numpy()
+            scale = _host(qt.scale)
+            node = {"q": q.T.copy(), "scale": scale.T.copy()} if transposed else {
+                "q": q, "scale": scale}
+        elif w is not None:
+            node = {"base": _to_flax(_host(w.base)),
+                    "a": np.swapaxes(_host(w.a), -1, -2).copy(),
+                    "b": np.swapaxes(_host(w.b), -1, -2).copy()}
+        else:
+            arr = _host(t)
+            node = _to_flax(arr) if transposed else arr
+        _nest(tree, parts, node)
     return tree
 
 

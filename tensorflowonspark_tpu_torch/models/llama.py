@@ -36,9 +36,22 @@ products read in place; ``models.convert.cache_from_jax`` /
 autoregressive loop over :func:`prefill` and :func:`decode_step`, and
 :func:`sample_logits` draws from a ``torch.Generator``.
 
+Int8 and LoRA weights (``ops.quant``, ``ops.lora``) are entries of the
+same flat weight set: a quantized leaf ``n`` holds int8 codes with fp32
+scales under ``n + "_scale"``; an adapted dense weight keeps its base under
+``n`` beside ``n + "_lora_a"``, ``"_lora_b"`` and ``"_lora_scale"`` (a bank
+of adapters when the factors are 3-D). Every such entry has a slot in the
+module tree, empty (None) until a weight set fills it:
+:func:`adopt_params` makes a weight set a model's own parameters (and
+checks it, :func:`check_params`). :class:`Dense` then runs the quantized
+product, the adapter or the bank (the JAX package's ``QDense``), the
+embedding gathers int8 rows and their scales, and the head projects
+through ``ops.quant.quantized_dot``. ``forward``, :func:`prefill`,
+:func:`decode_step` and :func:`generate` take ``adapter_ids`` (B,), each
+row's bank slot; None routes every row to slot 0, the bank's zero adapter.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): decode on a device mesh (A9b), MoE experts, and int8 or LoRA kernels
-(``models.convert.params_from_jax`` rejects them; A10).
+item): decode on a device mesh (A9b) and MoE experts (A10).
 """
 
 from __future__ import annotations
@@ -57,6 +70,8 @@ from torch.utils.checkpoint import (
 )
 
 from tensorflowonspark_tpu_torch import resolve_device
+from tensorflowonspark_tpu_torch.ops import lora as _lora
+from tensorflowonspark_tpu_torch.ops import quant as _quant
 from tensorflowonspark_tpu_torch.ops.attention import dot_product_attention
 from tensorflowonspark_tpu_torch.parallel.context import gather_fsdp, is_dtensor, mesh_region
 
@@ -226,18 +241,47 @@ def rope(x, positions, theta: float, scaling: RopeScaling | None = None):
     return out.to(x.dtype)
 
 
+# the optional slots of a weight, filled only by an int8 or adapted weight set
+_WEIGHT_SLOTS = (_quant.SCALE, _lora.A, _lora.B, _lora.S)
+
+
+def _register_slots(mod: nn.Module, weight: str) -> None:
+    for sfx in _WEIGHT_SLOTS:
+        mod.register_parameter(weight + sfx, None)
+
+
 class Dense(nn.Module):
     """Bias-free (or, for Qwen2's QKV, biased) projection computed in
-    ``dtype``. The weight is stored ``(out, in)`` as ``nn.Linear`` does."""
+    ``dtype``: the JAX package's ``QDense``. The weight is stored ``(out,
+    in)`` as ``nn.Linear`` does; int8 codes with ``weight_scale`` run
+    :func:`ops.quant.quantized_dot`, ``weight_lora_*`` factors run
+    :func:`ops.lora.lora_apply` (2-D) or the bank's
+    :func:`ops.lora.multi_lora_apply` (3-D, per-row ``adapter_ids``; None
+    routes every row to slot 0). A bias is added after whichever ran."""
 
     def __init__(self, d_in, d_out, dtype, bias=False, device=None):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device)) if bias else None
+        _register_slots(self, "weight")
 
-    def forward(self, x):
-        y = F.linear(x.to(self.dtype), gather_fsdp(self.weight).to(self.dtype))
+    def forward(self, x, adapter_ids=None):
+        x = x.to(self.dtype)
+        w = gather_fsdp(self.weight)
+        if self.weight_scale is not None:
+            y = _quant.quantized_dot(x, _quant.QuantTensor(w, self.weight_scale, axis=0))
+        elif self.weight_lora_a is not None:
+            a, b = gather_fsdp(self.weight_lora_a), gather_fsdp(self.weight_lora_b)
+            scale = self.weight_lora_scale
+            if a.dim() == 2:
+                y = _lora.lora_apply(x, _lora.LoraTensor(w, a, b, scale))
+            elif adapter_ids is None:  # slot 0 for every row
+                y = _lora.lora_apply(x, _lora.LoraTensor(w, a[0], b[0], scale))
+            else:
+                y = _lora.multi_lora_apply(x, _lora.MultiLoraTensor(w, a, b, scale), adapter_ids)
+        else:
+            y = F.linear(x, w.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -254,15 +298,15 @@ class Attention(nn.Module):
         self.v_proj = dense(cfg.num_kv_heads * hd, ab)
         self.o_proj = Dense(cfg.num_heads * hd, cfg.hidden_size, cfg.dtype, device=device)
 
-    def forward(self, x, positions, segment_ids=None, cache=None, padded=False):
+    def forward(self, x, positions, segment_ids=None, cache=None, padded=False, adapter_ids=None):
         """``cache`` (this layer's dict of :func:`init_cache`) runs the
         decode branch: the new K/V are written into it and the queries
         attend the cache."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = self.q_proj(x, adapter_ids).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x, adapter_ids).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = self.v_proj(x, adapter_ids).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         if cache is not None:
@@ -278,7 +322,7 @@ class Attention(nn.Module):
                 q, k, v.contiguous(), causal=True, segment_ids=segment_ids,
                 impl=cfg.attention_impl, window=cfg.sliding_window,
             )
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim), adapter_ids)
 
 
 def _cache_len(cfg: LlamaConfig) -> tuple[int, bool]:
@@ -469,8 +513,10 @@ class MLP(nn.Module):
         self.up_proj = Dense(h, i, dt, device=device)
         self.down_proj = Dense(i, h, dt, device=device)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, adapter_ids=None):
+        return self.down_proj(
+            F.silu(self.gate_proj(x, adapter_ids)) * self.up_proj(x, adapter_ids), adapter_ids
+        )
 
 
 class Block(nn.Module):
@@ -481,9 +527,9 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, positions, segment_ids=None, cache=None, padded=False):
-        h = x + self.attn(self.attn_norm(x), positions, segment_ids, cache, padded)
-        return h + self.mlp(self.mlp_norm(h))
+    def forward(self, x, positions, segment_ids=None, cache=None, padded=False, adapter_ids=None):
+        h = x + self.attn(self.attn_norm(x), positions, segment_ids, cache, padded, adapter_ids)
+        return h + self.mlp(self.mlp_norm(h), adapter_ids)
 
 
 # the plain matrix products, whose outputs remat_policy='dots' keeps
@@ -553,6 +599,9 @@ class Llama(nn.Module):
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
         # untied output head, stored (vocab, hidden) like nn.Linear
         self.lm_head = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size, device=device))
+        # int8 scales of the embedding and the head (per row: axis 0)
+        self.register_parameter("embed" + _quant.SCALE, None)
+        self.register_parameter("lm_head" + _quant.SCALE, None)
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():
@@ -564,10 +613,15 @@ class Llama(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, positions=None, segment_ids=None, decode=False, return_hidden=False,
-                padded=False, cache=None):
+                padded=False, cache=None, adapter_ids=None):
         """``return_hidden=True`` returns ``(hidden, lm_head)`` — the final
-        normed hidden states (B, S, H) and the head weight (vocab, H) — so
-        a loss can project the vocabulary in chunks.
+        normed hidden states (B, S, H) and the head weight (vocab, H; a
+        ``QuantTensor`` when it is int8) — so a loss can project the
+        vocabulary in chunks.
+
+        ``adapter_ids`` (B,) routes each row through its slot of every
+        LoRA bank in the weights; None routes every row to slot 0, the
+        bank's zero adapter. Ignored when the weights hold no bank.
 
         ``decode=True`` runs against ``cache`` (:func:`init_cache`), which
         it updates in place; ``positions`` are then the tokens' absolute
@@ -587,52 +641,142 @@ class Llama(nn.Module):
                 )
         with mesh_region(tokens):
             return self._forward(tokens, positions, segment_ids, return_hidden,
-                                 cache if decode else None, padded)
+                                 cache if decode else None, padded, adapter_ids)
 
-    def _forward(self, tokens, positions, segment_ids, return_hidden, cache, padded):
+    def _forward(self, tokens, positions, segment_ids, return_hidden, cache, padded, adapter_ids):
         cfg = self.cfg
         if positions is None:
             if segment_ids is None:
                 positions = torch.arange(tokens.shape[1], device=tokens.device).expand_as(tokens)
             else:
                 positions = packed_positions(segment_ids)
-        x = F.embedding(tokens, gather_fsdp(self.embed)).to(cfg.dtype)
+        embed = gather_fsdp(self.embed)
+        if self.embed_scale is not None:
+            # int8 rows and their per-row scales: the table stays int8
+            x = (F.embedding(tokens, embed).float()
+                 * F.embedding(tokens, self.embed_scale)).to(cfg.dtype)
+        else:
+            x = F.embedding(tokens, embed).to(cfg.dtype)
         context_fn = _dots_saved if cfg.remat_policy == "dots" else None
         for i, block in enumerate(self.layers):
             if cache is not None:  # decode stays out of remat
-                x = block(x, positions, segment_ids, cache[i], padded)
+                x = block(x, positions, segment_ids, cache[i], padded, adapter_ids)
             elif cfg.remat and torch.is_grad_enabled():
                 kw = {} if context_fn is None else {"context_fn": context_fn}
-                x = checkpoint(block, x, positions, segment_ids, use_reentrant=False, **kw)
+                x = checkpoint(block, x, positions, segment_ids, None, False, adapter_ids,
+                               use_reentrant=False, **kw)
             else:
-                x = block(x, positions, segment_ids)
+                x = block(x, positions, segment_ids, adapter_ids=adapter_ids)
         x = self.final_norm(x)
         head = gather_fsdp(self.lm_head)
+        if self.lm_head_scale is not None:
+            head = _quant.QuantTensor(head, self.lm_head_scale, axis=0)
+            if return_hidden:
+                return x, head
+            return _quant.quantized_dot(x, head).float()
         if return_hidden:
             return x, head
         return F.linear(x, head.to(cfg.dtype)).float()
 
 
-def prefill(model: Llama, cache, prompt, lengths=None):
+def _slots(model: nn.Module) -> dict:
+    """Every parameter slot of ``model``'s tree, filled or not: name ->
+    (owning module, attribute)."""
+    return {f"{prefix}.{n}" if prefix else n: (mod, n)
+            for prefix, mod in model.named_modules() for n in mod._parameters}
+
+
+def _optional(slots: dict, name: str) -> bool:
+    return any(name.endswith(sfx) and name[: -len(sfx)] in slots for sfx in _WEIGHT_SLOTS)
+
+
+def check_params(model: nn.Module, params: dict) -> None:
+    """Raise ``ValueError`` unless ``params`` (name -> tensor) is a weight
+    set ``model`` can run: every name one of its slots, every required
+    weight present in its shape, an int8 leaf with its ``(rows, 1)``
+    scales, an adapter with its two factors and scale in shapes that fit
+    its base (2-D: one adapter; 3-D: a bank), and no leaf both int8 and
+    adapted."""
+    slots = _slots(model)
+    unknown = sorted(n for n in params if n not in slots)
+    if unknown:
+        raise ValueError(f"no parameter slot for {unknown[:5]}")
+    own = dict(model.named_parameters())
+    for name in slots:
+        if _optional(slots, name):
+            continue
+        t = params.get(name)
+        if t is None:
+            raise ValueError(f"missing parameter {name}")
+        if name in own and tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)}, the model's {tuple(own[name].shape)}")
+        scale = params.get(name + _quant.SCALE)
+        if (t.dtype == torch.int8) != (scale is not None):
+            raise ValueError(f"{name}: int8 codes and {name + _quant.SCALE} go together")
+        if scale is not None and tuple(scale.shape) != (t.shape[0], 1):
+            raise ValueError(f"{name + _quant.SCALE}: shape {tuple(scale.shape)}, the codes "
+                             f"need one scale a row {(t.shape[0], 1)} (axis 0)")
+        factors = [params.get(name + sfx) for sfx in (_lora.A, _lora.B, _lora.S)]
+        if all(f is None for f in factors):
+            continue
+        if any(f is None for f in factors):
+            raise ValueError(f"{name}: an adapter needs its _lora_a, _lora_b and _lora_scale")
+        if scale is not None:
+            raise ValueError(f"{name}: an adapter over int8 codes (merge_lora, then quantize)")
+        a, b, _ = factors
+        lead = tuple(a.shape[:-2])
+        if (a.dim() not in (2, 3) or tuple(b.shape[:-2]) != lead
+                or a.shape[-1] != t.shape[1] or b.shape[-2] != t.shape[0]
+                or a.shape[-2] != b.shape[-1]):
+            raise ValueError(f"{name}: factors {tuple(a.shape)} and {tuple(b.shape)} do not fit "
+                             f"the base {tuple(t.shape)}")
+
+
+def adopt_params(model: nn.Module, params: dict) -> dict:
+    """Make ``params`` (name -> tensor, checked by :func:`check_params`)
+    the parameters of ``model``: every slot is filled from ``params`` or
+    emptied, so the weight set decides the format (plain, int8, one
+    adapter, a bank). Tensors on the model's device are taken as they are
+    (no copy), others are moved there. Returns the model's parameters by
+    name: the same tensor objects a ``TrainState`` must hold (remat
+    recomputes from the module's own)."""
+    check_params(model, params)
+    device = model.device
+    for name, (mod, attr) in _slots(model).items():
+        t = params.get(name)
+        if t is not None and not isinstance(t, nn.Parameter):
+            t = t.to(device)
+            # scales (int8, LoRA) are constants: only weights may train
+            t = nn.Parameter(t, requires_grad=t.is_floating_point() and not attr.endswith(
+                _quant.SCALE))
+        elif t is not None and t.device != device:
+            raise ValueError(f"{name}: a Parameter on {t.device}, the model is on {device}")
+        mod._parameters[attr] = t
+    return dict(model.named_parameters())
+
+
+def prefill(model: Llama, cache, prompt, lengths=None, adapter_ids=None):
     """The prompt (B, S) through ``model`` into a fresh ``cache``: returns
     each row's next-token logits (B, vocab) fp32 and the position of its
     next token (B,). With ``lengths`` (right-padded rows) each row's logits
-    come from its true last position and it continues from its length."""
+    come from its true last position and it continues from its length.
+    ``adapter_ids`` (B,): each row's LoRA bank slot."""
     b, s = prompt.shape
     positions = torch.arange(s, device=prompt.device).expand(b, s)
     logits = model(prompt, positions=positions, decode=True, padded=lengths is not None,
-                   cache=cache)
+                   cache=cache, adapter_ids=adapter_ids)
     if lengths is None:
         return logits[:, -1], torch.full((b,), s, dtype=torch.long, device=prompt.device)
     last = logits[torch.arange(b, device=prompt.device), lengths - 1]
     return last, lengths
 
 
-def decode_step(model: Llama, cache, tok, pos, padded=False):
+def decode_step(model: Llama, cache, tok, pos, padded=False, adapter_ids=None):
     """One token per row (B,) at positions ``pos`` (B,) through ``model``
     against ``cache``: the next-token logits (B, vocab) fp32."""
     return model(tok[:, None], positions=pos[:, None], decode=True, padded=padded,
-                 cache=cache)[:, -1]
+                 cache=cache, adapter_ids=adapter_ids)[:, -1]
 
 
 def _truncate(logits, top_k=None, top_p=None, min_p=None):
@@ -682,7 +826,7 @@ def sample_logits(logits, generator, temperature, top_k=None, top_p=None, min_p=
 def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0,
              top_k: int | None = None, top_p: float | None = None,
              min_p: float | None = None, generator: torch.Generator | None = None,
-             eos_id: int | None = None, prompt_lengths=None, mesh=None):
+             eos_id: int | None = None, prompt_lengths=None, mesh=None, adapter_ids=None):
     """Autoregressive sampling with a KV cache: (B, S) -> (B, max_new_tokens).
 
     One prefill over the prompt (:func:`prefill`), then single-token steps
@@ -701,10 +845,10 @@ def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0
     test), and the output stays (B, max_new_tokens). Without ``eos_id`` the
     loop takes max_new_tokens - 1 steps and never waits for the device.
 
-    Not ported yet: ``mesh`` (decode on a device mesh, ROADMAP A9b). int8
-    weights (the reference's ``QuantTensor``) cannot reach a port model:
-    ``models.convert.params_from_jax`` and the decode tools refuse them
-    (ROADMAP A10).
+    ``adapter_ids`` (B,): each row's LoRA bank slot (None: slot 0). int8
+    and adapted weights decode as the model holds them (:func:`adopt_params`).
+
+    Not ported yet: ``mesh`` (decode on a device mesh, ROADMAP A9b).
     """
     cfg = model.cfg
     device = model.device
@@ -742,18 +886,20 @@ def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0
         lengths = torch.as_tensor(host, dtype=torch.long, device=device)
     if generator is None and temperature != 0.0:
         generator = torch.Generator(device=device).manual_seed(0)
+    if adapter_ids is not None:
+        adapter_ids = torch.as_tensor(adapter_ids, dtype=torch.long, device=device)
 
     def sample(logits):
         return sample_logits(logits, generator, float(temperature), top_k, top_p, min_p)
 
     padded = lengths is not None
     cache = init_cache(cfg, b, device)
-    logits, pos = prefill(model, cache, prompt, lengths)
+    logits, pos = prefill(model, cache, prompt, lengths, adapter_ids)
     tok = sample(logits)
     if eos_id is None:
         toks = [tok]
         for _ in range(max_new_tokens - 1):
-            tok = sample(decode_step(model, cache, tok, pos, padded))
+            tok = sample(decode_step(model, cache, tok, pos, padded, adapter_ids))
             pos = pos + 1
             toks.append(tok)
         return torch.stack(toks, dim=1)
@@ -763,7 +909,7 @@ def generate(model: Llama, prompt, max_new_tokens: int, temperature: float = 0.0
     for i in range(1, max_new_tokens):
         if bool(done.all()):
             break
-        nxt = sample(decode_step(model, cache, tok, pos, padded))
+        nxt = sample(decode_step(model, cache, tok, pos, padded, adapter_ids))
         pos = pos + 1
         nxt = torch.where(done, eos_id, nxt)  # eos stays in finished rows
         out[:, i] = nxt

@@ -60,10 +60,18 @@ records an event on the scheduler's stream and a filler thread copies the
 entry after it, so the scheduler never waits for the host copy. The L2
 key carries the weights version.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``mesh=`` (TP decode on 'model', A9b), LoRA banks and
-``swap_weights(kind='lora')`` (A10), and MoE or int8 weights (A10). The
-int8 and rolling KV caches are ported.
+**LoRA banks and int8 weights.** A weight set with ``ops.lora`` bank
+entries (3-D factors, ``multi_lora_bank``) serves one adapter per request:
+``adapter`` picks the row's slot (0 = the base model), which rides the
+prefill and every decode step as a per-row id, and the prefix caches key
+on it. ``swap_weights(kind='lora')`` installs new factors over the
+resident bases (by reference: nothing else moves). An int8 weight set
+(``ops.quant.quantize_tree``) serves as given, at construction and at
+swaps.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
+``mesh=`` (TP decode on 'model', A9b). MoE weights (A10) cannot reach a
+port model. The int8 and rolling KV caches are ported.
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ import math
 import queue
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -256,7 +265,7 @@ class _Pending:
     # submissions); set = reproducible completion for this request
     seed: int | None = None
     eos_id: int | None = None  # None = the engine-wide default
-    adapter: int = 0  # LoRA bank slot (0 = base model; banks not ported)
+    adapter: int = 0  # LoRA bank slot (0 = base model)
     # multi-token stop sequences (host-side tail match; the matched
     # suffix is trimmed from the RESULT — streams necessarily saw its
     # tokens already, since the match completes only on the last one)
@@ -428,7 +437,7 @@ class _DeviceState:
     resolved sampling knobs."""
 
     __slots__ = ("cache", "tok", "pos", "temps", "kps", "seeds", "pens", "counts", "bids",
-                 "bvals")
+                 "bvals", "ads")
 
 
 class _PrefixStore:
@@ -528,12 +537,21 @@ def _cache_leaves(cache) -> list:
 def _bound_module(model, params: dict):
     """A copy of ``model``'s module tree, sharing every attribute but its
     parameters, which are ``params`` (name -> tensor): the module a
-    swapped-in weight set runs through. No tensor is copied, and
-    ``model`` itself is left as it is (other threads may be running it)."""
+    swapped-in weight set runs through. Every parameter slot is filled
+    from ``params`` or left empty, so the set decides the format (plain,
+    int8, a LoRA bank; ``models.llama.check_params`` checks it). No tensor
+    is copied, and ``model`` itself is left as it is (other threads may be
+    running it)."""
+    from tensorflowonspark_tpu_torch.models.llama import check_params
+
+    try:
+        check_params(model, params)
+    except ValueError as e:
+        raise WeightsIncompatible(str(e)) from e
 
     def clone(mod, prefix):
         c = copy.copy(mod)
-        c._parameters = {n: params[prefix + n] for n in mod._parameters}
+        c._parameters = {n: params.get(prefix + n) for n in mod._parameters}
         c._modules = {n: clone(m, prefix + n + ".") for n, m in mod._modules.items()}
         return c
 
@@ -609,11 +627,17 @@ class ContinuousBatcher:
         self._cuda = self._device.type == "cuda"
         self._params = dict(model.named_parameters())
         # the module the scheduler runs: the model itself while it serves
-        # its own weights, else a tree bound to the given ones
+        # its own weights, else a tree bound to the given ones (whose
+        # format, plain, int8 or a LoRA bank, may differ from the model's)
         self._runner = model
         if params is not None:
-            self._params = self._place_update(params, "full")
+            self._params = self._place_initial(params)
             self._runner = _bound_module(model, self._params)
+        from tensorflowonspark_tpu_torch.ops.lora import bank_size
+
+        # LoRA banks in the weights enable per-request adapter routing;
+        # 0 slots means "no bank" (adapter must be 0/None)
+        self._n_adapters = bank_size(self._params)
         self._slots = int(slots)
         if self._slots < 1:
             # slots=0 would construct fine, then the scheduler thread
@@ -910,11 +934,15 @@ class ContinuousBatcher:
         if temperature is not None and not (math.isfinite(temperature) and temperature >= 0):
             raise ValueError(f"temperature must be finite and >= 0, got {temperature}")
         if adapter is not None and adapter != 0:
-            # no LoRA bank can reach a port model (ROADMAP A10)
-            raise ValueError(
-                "this engine's params hold no MultiLoraTensor bank; "
-                "only adapter 0/None (base model) is valid"
-            )
+            if self._n_adapters == 0:
+                raise ValueError(
+                    "this engine's params hold no MultiLoraTensor bank; "
+                    "only adapter 0/None (base model) is valid"
+                )
+            if not (isinstance(adapter, int) and 0 <= adapter < self._n_adapters):
+                # an out-of-range gather would read another tenant's
+                # adapter (or fault on the device), not raise here
+                raise ValueError(f"adapter {adapter} out of range [0, {self._n_adapters})")
         if self._prefill_chunk is None and len(tokens) > self._widths[-1]:
             # chunked prefill never touches the width buckets — its only
             # cap is the KV capacity checked below
@@ -1243,12 +1271,15 @@ class ContinuousBatcher:
         scheduler then installs it between decode blocks — a pointer
         flip. The prefix cache is cleared at install. Requests decoding
         ACROSS the install finish under the new weights and are stamped
-        with the new version. ``kind='lora'`` (adapter-only swaps) is not
-        ported yet: ROADMAP A10."""
+        with the new version.
+
+        ``kind='lora'``: ``new_params`` holds only adapter factors, the
+        ``_lora_a`` / ``_lora_b`` entries of adapted leaves (both of each;
+        ``serving.rollout.lora_state`` extracts them). Those are copied in
+        and every other tensor, the bases included, is the running one by
+        reference: the adapter-only swap moves the factors alone."""
         if kind not in ("full", "lora"):
             raise ValueError(f"kind must be 'full' or 'lora', got {kind!r}")
-        if kind == "lora":
-            raise NotImplementedError("LoRA adapter swaps are not ported yet: ROADMAP A10")
         version = str(version)
         with self._submit_lock:
             if self._closed:
@@ -1282,20 +1313,30 @@ class ContinuousBatcher:
             raise req.error
         return version
 
+    def _place_initial(self, params) -> dict:
+        """The construction-time weight set, in any format the model has
+        slots for (the constructor's ``_bound_module`` checks its names and
+        shapes), placed by :meth:`_place_update` against the model's dtype."""
+        return self._place_update(params, "initial")
+
     def _place_update(self, new_params, kind: str) -> dict:
-        """Validate + device-place a weight set against the running one
-        (caller thread). Raises :class:`WeightsIncompatible` on any name/
-        shape/dtype mismatch BEFORE anything is installed."""
+        """Validate + device-place a weight set (caller thread). Raises
+        :class:`WeightsIncompatible` on any name/shape/dtype mismatch BEFORE
+        anything is installed. ``kind`` names the target: ``'full'`` the
+        running set's names, shapes and dtypes; ``'lora'`` its adapter
+        factors (:meth:`_graft_lora`); ``'initial'`` the set's own names
+        and shapes, each floating leaf in the model's ``cfg.dtype`` (a
+        scale, int8 or LoRA, also in fp32) and every other leaf int8."""
         if not isinstance(new_params, dict):
             raise WeightsIncompatible(
                 f"a weight set is a dict of name -> tensor, got {type(new_params).__name__}"
             )
-        for name, leaf in new_params.items():
-            if isinstance(leaf, dict) and {"q", "scale"} <= set(leaf):
-                raise NotImplementedError(f"{name}: int8 weights are not ported yet: ROADMAP A10")
-            if isinstance(leaf, dict) and {"a", "b"} <= set(leaf):
-                raise NotImplementedError(f"{name}: LoRA adapters are not ported yet: ROADMAP A10")
-        old = self._params
+        if kind == "lora":
+            return self._graft_lora(new_params)
+        if kind == "initial":
+            old = {n: self._initial_target(n, t) for n, t in new_params.items()}
+        else:
+            old = self._params
         if set(new_params) != set(old):
             missing, extra = sorted(set(old) - set(new_params)), sorted(set(new_params) - set(old))
             raise WeightsIncompatible(
@@ -1307,10 +1348,50 @@ class ContinuousBatcher:
             torch.cuda.synchronize(self._device)
         return placed
 
+    def _initial_target(self, name: str, t):
+        """The shape, dtype and device a construction-time leaf must have."""
+        if not isinstance(t, (torch.Tensor, np.ndarray)):
+            raise WeightsIncompatible(f"leaf {name}: {type(t).__name__} is not a tensor")
+        t = torch.as_tensor(t)
+        if not t.is_floating_point():
+            dtype = torch.int8
+        elif name.endswith("_scale") and t.dtype == torch.float32:
+            dtype = torch.float32
+        else:
+            dtype = self._model.cfg.dtype
+        return types.SimpleNamespace(shape=t.shape, dtype=dtype, device=self._device)
+
+    def _graft_lora(self, upd: dict) -> dict:
+        """Adapter-only update: the running weight set with exactly the
+        named ``_lora_a`` / ``_lora_b`` factors replaced (copies on the
+        device), every other tensor the running one by reference."""
+        from tensorflowonspark_tpu_torch.ops.lora import A, B
+
+        old = self._params
+        bases = set()
+        for name in upd:
+            if not (name.endswith(A) or name.endswith(B)) or name not in old:
+                raise WeightsIncompatible(
+                    f"{name}: an adapter update names only the running weights' _lora_a / "
+                    "_lora_b factors"
+                )
+            bases.add(name[: -len(A)])
+        for base in sorted(bases):
+            if base + A not in upd or base + B not in upd:
+                raise WeightsIncompatible(f"{base}: adapter update must carry both {A} and {B}")
+        placed = dict(old)
+        for name, t in upd.items():
+            placed[name] = self._place_leaf(old[name], t, name)
+        if self._cuda:
+            torch.cuda.synchronize(self._device)
+        return placed
+
     @staticmethod
     def _place_leaf(old, new, where: str):
         if new is old:
             return old  # re-install of a retained set: nothing to move
+        if not isinstance(new, (torch.Tensor, np.ndarray)):
+            raise WeightsIncompatible(f"leaf {where}: {type(new).__name__} is not a tensor")
         new = torch.as_tensor(new)
         if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
             raise WeightsIncompatible(
@@ -1499,6 +1580,7 @@ class ContinuousBatcher:
                 for name, v in self._tracer.summary(prefix="engine.").items()
             },
             "closed": self._closed,  # lint: lockfree-read: advisory /stats snapshot
+            **({"adapters": self._n_adapters} if self._n_adapters else {}),
             **(
                 {
                     "prefix_cache_entries": len(self._prefix_store),
@@ -1638,8 +1720,10 @@ class ContinuousBatcher:
             ev.synchronize()
         return host.numpy()
 
-    def _forward(self, tokens, positions, cache):
-        return self._runner(tokens, positions=positions, decode=True, padded=True, cache=cache)
+    def _forward(self, tokens, positions, cache, ads):
+        """``ads``: each row's LoRA bank slot (unused without a bank)."""
+        return self._runner(tokens, positions=positions, decode=True, padded=True, cache=cache,
+                            adapter_ids=ads if self._n_adapters else None)
 
     def _decode_body(self):
         """One decode step over every slot — the body shared by every k in
@@ -1649,7 +1733,7 @@ class ContinuousBatcher:
         max_pos = self._model.cfg.max_seq_len - 1
 
         def body(st, gates):
-            logits = self._forward(st.tok[:, None], st.pos[:, None], st.cache)[:, -1]
+            logits = self._forward(st.tok[:, None], st.pos[:, None], st.cache, st.ads)[:, -1]
             # the sampled token will occupy position pos+1 (unclamped:
             # the cache-write clamp below must not alias two counters)
             counter = st.pos + 1
@@ -1703,7 +1787,7 @@ class ContinuousBatcher:
         def prefill(prompt, length: int, vals, gates):
             cache_1 = self._single_row_cache()
             positions = torch.arange(width, device=self._device)[None, :]
-            logits = self._forward(prompt, positions, cache_1)
+            logits = self._forward(prompt, positions, cache_1, vals["adapter"])
             # the first sampled token occupies position `length`;
             # logit_bias shapes it too (penalties don't - zero counts)
             tok, lp = _sample_rows(
@@ -1735,12 +1819,13 @@ class ContinuousBatcher:
         st.counts[row].scatter_(0, tok_1, 1.0)
         st.bids[row:row + 1].copy_(vals["bid"])
         st.bvals[row:row + 1].copy_(vals["bval"])
+        st.ads[row:row + 1].copy_(vals["adapter"])
 
-    def _chunk_fn(self, cache_1, tokens, positions):
+    def _chunk_fn(self, cache_1, tokens, positions, ads):
         """One prompt chunk (1, C) through the model against the
         single-row cache — the unit a chunked prefill interleaves with
         decode steps. Returns the chunk's logits (1, C, vocab)."""
-        return self._forward(tokens, positions, cache_1)
+        return self._forward(tokens, positions, cache_1, ads)
 
     @staticmethod
     def _sample1_fn(logits_chunk, idx: int, vals, gates):
@@ -1790,6 +1875,8 @@ class ContinuousBatcher:
         st.counts = torch.zeros(b, vocab, device=dev)
         st.bids = torch.full((b, _BIAS_SLOTS), -1, dtype=torch.long, device=dev)
         st.bvals = torch.zeros(b, _BIAS_SLOTS, device=dev)
+        # parked rows route to slot 0 (the base): any valid slot would do
+        st.ads = torch.zeros(b, dtype=torch.long, device=dev)
         return st
 
     def _effective_knobs(self, p: _Pending):
@@ -1847,6 +1934,7 @@ class ContinuousBatcher:
             "bid": self._upload(ids, torch.long),
             "bval": self._upload(vals, f32),
             "length": self._upload(np.array([len(p.tokens)], np.int64), torch.long),
+            "adapter": self._upload(np.array([p.adapter], np.int64), torch.long),
         }
 
     def _gates_now(self) -> tuple:
@@ -1952,7 +2040,7 @@ class ContinuousBatcher:
         toks[0, : len(piece)] = piece
         positions = np.arange(start_w, start_w + c, dtype=np.int64)[None, :]
         logits = self._chunk_fn(job.cache_1, self._upload(toks, torch.long),
-                                self._upload(positions, torch.long))
+                                self._upload(positions, torch.long), job.vals["adapter"])
         job.next_pos = start_w + c
         if job.next_pos < job.length:
             if (

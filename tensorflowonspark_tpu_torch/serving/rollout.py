@@ -68,8 +68,13 @@ monotonic ordinal), ``rollout_swap_seconds`` histogram,
 flightrec ``rollout_begin`` / ``replica_swap`` / ``rollout_rollback``
 (dumped on rollback) / ``rollout_complete``.
 
-Not ported yet: LoRA adapter-only updates (``kind='lora'``,
-:func:`lora_state`) raise ``NotImplementedError`` naming ROADMAP A10.
+LoRA adapter-only updates (``kind='lora'``): :func:`lora_state` takes a
+LoRA weight set's ``_lora_a`` / ``_lora_b`` factors (``ops.lora``) as the
+payload, which ``publish_params`` writes as its own small checkpoint and
+the loader restores as it is; each engine grafts the factors over its
+resident bases (``ContinuousBatcher.swap_weights(kind='lora')``), which
+stay the same tensors. A rollback re-installs a seat's retained prior as
+a full set, whose every tensor is the prior's own (nothing moves).
 """
 
 from __future__ import annotations
@@ -106,7 +111,6 @@ __all__ = [
 ]
 
 MANIFEST_NAME = "LATEST"
-_LORA = "LoRA adapter updates (kind='lora') are not ported yet: ROADMAP A10"
 
 
 class _ByReference:
@@ -141,23 +145,22 @@ def _snapshot(tree, dtype):
 @dataclasses.dataclass(frozen=True)
 class WeightsUpdate:
     """One publishable weights version. ``params`` is the in-process
-    payload (a name -> tensor dict in the layout of ``models.convert``);
-    it never crosses a process boundary and is SNAPSHOTTED here: the
+    payload (a name -> tensor dict in the layout of ``models.convert``; for
+    ``kind='lora'`` the factors of :func:`lora_state`); it never crosses a
+    process boundary and is SNAPSHOTTED here: the
     update owns a copy (:meth:`RolloutController.publish` hands it one
     already cast to the engines' dtype). ``path`` names a committed
     checkpoint directory that subprocess replicas (and path-only
     in-process loaders) read."""
 
     version: str
-    kind: str = "full"  # 'full' ('lora' is not ported: ROADMAP A10)
+    kind: str = "full"  # 'full' | 'lora' 
     path: str | None = None
     step: int | None = None
     params: object = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
-        if self.kind == "lora":
-            raise NotImplementedError(_LORA)
-        if self.kind != "full":
+        if self.kind not in ("full", "lora"):
             raise ValueError(f"kind must be 'full' or 'lora', got {self.kind!r}")
         if self.params is None and self.path is None:
             raise ValueError(
@@ -195,8 +198,8 @@ def publish_checkpoint(channel_dir: str, *, version: str, path: str, kind: str =
     itself is fully written (``CheckpointManager.wait()`` for async saves)
     — :func:`read_latest` independently refuses incomplete checkpoint
     directories."""
-    if kind == "lora":
-        raise NotImplementedError(_LORA)
+    if kind not in ("full", "lora"):
+        raise ValueError(f"kind must be 'full' or 'lora', got {kind!r}")
     manifest = wire.encode(
         "rollout.manifest",
         version=str(version),
@@ -222,16 +225,14 @@ def publish_checkpoint(channel_dir: str, *, version: str, path: str, kind: str =
 
 def publish_params(channel_dir: str, params, *, version: str, kind: str = "full",
                    step: int | None = None) -> WeightsUpdate:
-    """Write ``params`` (name -> tensor) as a checkpoint under the channel
-    through ``compute.checkpoint.save_checkpoint`` and publish the pointer
-    — the one-call path for a trainer (or a test harness) shipping a
-    version to a fleet whose replicas live in other processes. The
-    returned update carries a snapshot of ``params`` for in-process
-    seats."""
+    """Write ``params`` (name -> tensor; for ``kind='lora'`` the factors
+    of :func:`lora_state`) as a checkpoint under the channel through
+    ``compute.checkpoint.save_checkpoint`` and publish the pointer — the
+    one-call path for a trainer (or a test harness) shipping a version to
+    a fleet whose replicas live in other processes. The returned update
+    carries a snapshot of ``params`` for in-process seats."""
     from tensorflowonspark_tpu_torch.compute.checkpoint import save_checkpoint
 
-    if kind == "lora":
-        raise NotImplementedError(_LORA)
     path = os.path.join(channel_dir, "versions", str(version))
     save_checkpoint(path, params)
     publish_checkpoint(channel_dir, version=version, path=path, kind=kind, step=step)
@@ -243,8 +244,7 @@ def read_latest(channel_dir: str) -> WeightsUpdate | None:
     VALID to serve: no pointer yet, a torn/corrupt pointer (bad JSON, CRC
     mismatch, missing fields), or a pointer naming a missing/incomplete
     checkpoint directory. Rejection is silent by design — the watcher
-    polls; a torn write is mid-publish, not an incident. A LoRA pointer
-    raises ``NotImplementedError`` (ROADMAP A10)."""
+    polls; a torn write is mid-publish, not an incident."""
     try:
         with open(os.path.join(channel_dir, MANIFEST_NAME), encoding="utf-8") as f:
             raw = f.read()
@@ -285,9 +285,15 @@ def read_latest(channel_dir: str) -> WeightsUpdate | None:
 
 
 def lora_state(params):
-    """The adapter-only update payload of a LoRA-ified tree: not ported
-    yet (the port has no LoRA banks), ROADMAP A10."""
-    raise NotImplementedError(_LORA)
+    """The adapter-only update payload of a LoRA weight set (``ops.lora``:
+    single adapters or banks): its ``_lora_a`` / ``_lora_b`` factors as
+    host copies by name, the payload ``swap_weights(kind='lora')`` grafts
+    onto the resident bases. None when the set holds no adapter."""
+    from tensorflowonspark_tpu_torch.ops.lora import A, B
+
+    out = {n: t.detach().to("cpu", copy=True) for n, t in params.items()
+           if n.endswith(A) or n.endswith(B)}
+    return out or None
 
 
 def checkpoint_loader(target_params: dict):
@@ -301,30 +307,41 @@ def checkpoint_loader(target_params: dict):
     or ``{'params': ...}`` wrapper. Every name and shape must match the
     running set's (else :class:`WeightsIncompatible`, as for a tree that
     is not a Llama's); floating leaves are cast once to the running
-    leaf's dtype. IO and format errors (a truncated file) propagate as
-    they are: the controller rolls back on either."""
+    leaf's dtype. A ``kind='lora'`` checkpoint is a :func:`lora_state`
+    payload: each of its names must be a running factor of the same
+    shape. IO and format errors (a truncated file) propagate as they are:
+    the controller rolls back on either."""
 
     def load(update: WeightsUpdate) -> dict:
         from tensorflowonspark_tpu_torch.compute.checkpoint import restore_checkpoint
         from tensorflowonspark_tpu_torch.tools.generate_text import llama_params_of
 
-        if update.kind == "lora":
-            raise NotImplementedError(_LORA)
         tree = restore_checkpoint(update.path)  # no target: host tensors of its own
-        try:
-            tree = llama_params_of(tree, update.path)
-        except ValueError as e:
-            raise WeightsIncompatible(f"published checkpoint {update.version!r}: {e}") from e
-        if set(tree) != set(target_params):
-            missing = sorted(set(target_params) - set(tree))
-            extra = sorted(set(tree) - set(target_params))
-            raise WeightsIncompatible(
-                f"published checkpoint {update.version!r} does not fit the running weights: "
-                f"missing {missing[:5]}, unknown {extra[:5]}"
-            )
+        if update.kind == "lora":
+            if not isinstance(tree, dict) or not tree:
+                raise WeightsIncompatible(
+                    f"published adapters {update.version!r}: not a lora_state payload")
+            unknown = sorted(set(tree) - set(target_params))
+            if unknown:
+                raise WeightsIncompatible(
+                    f"published adapters {update.version!r} name factors the running weights "
+                    f"do not have: {unknown[:5]}")
+        else:
+            try:
+                tree = llama_params_of(tree, update.path)
+            except ValueError as e:
+                raise WeightsIncompatible(
+                    f"published checkpoint {update.version!r}: {e}") from e
+            if set(tree) != set(target_params):
+                missing = sorted(set(target_params) - set(tree))
+                extra = sorted(set(tree) - set(target_params))
+                raise WeightsIncompatible(
+                    f"published checkpoint {update.version!r} does not fit the running "
+                    f"weights: missing {missing[:5]}, unknown {extra[:5]}"
+                )
         out = {}
-        for name, want in target_params.items():
-            got = tree[name]
+        for name, got in tree.items():
+            want = target_params[name]
             if tuple(got.shape) != tuple(want.shape):
                 raise WeightsIncompatible(
                     f"published checkpoint {update.version!r}: {name} has shape "

@@ -12,6 +12,13 @@ and their sum instead.
 Prompts are token ids (``{"tokens": [1, 5, 9]}`` per line). The model runs
 on CUDA unless ``--device`` names another device (``--device cpu``).
 
+The checkpoint may hold an int8 weight set (``ops.quant.quantize_tree``),
+which decodes as it is, or LoRA adapters or a bank (``ops.lora``), whose
+scale is the one the weight set stores; ``--lora-scale`` overrides it
+through ``rewrap_lora``, and a set that stores none (converted from the
+JAX package, whose checkpoints keep no scale) gets 1.0, ``add_lora``'s
+default alpha = rank. A bank decodes as its slot 0.
+
 Usage::
 
     python -m tensorflowonspark_tpu_torch.tools.generate_text \\
@@ -22,8 +29,7 @@ Usage::
 
 Not ported yet, each raising ``NotImplementedError``: ``--mesh`` (decode on
 a device mesh, ROADMAP A9b), ``--draft-checkpoint``, the ``--draft-*``
-flags and ``--spec-k`` (speculative decoding, A10), LoRA checkpoints and ``--lora-scale``
-(A10), and int8 weight trees (A10).
+flags and ``--spec-k`` (speculative decoding, A10).
 """
 
 from __future__ import annotations
@@ -57,7 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
         "(+ summed total) as JSONL (decode flags are ignored)",
     )
     p.add_argument("--lora-scale", type=float, default=None,
-                   help="LoRA checkpoints (not ported: ROADMAP A10)")
+                   help="override the LoRA adapters' scale alpha/rank (default: the scale "
+                   "the checkpoint stores, else 1.0, add_lora's default alpha = rank; "
+                   "0 turns them off)")
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--temperature", type=float, default=0.0)
@@ -88,7 +96,6 @@ def _refuse_unported(args) -> None:
         (args.draft_model, "--draft-model (speculative decoding)", "A10"),
         (args.draft_config_overrides, "--draft-config-overrides (speculative decoding)", "A10"),
         (args.spec_k is not None, "--spec-k (speculative decoding)", "A10"),
-        (args.lora_scale is not None, "--lora-scale (LoRA checkpoints)", "A10"),
     ]
     for hit, what, item in refused:
         if hit:
@@ -116,31 +123,36 @@ def _load_params(checkpoint: str, cfg, lora_scale: float | None = None) -> dict:
     """Restore params (name -> tensor, on the CPU) from a CheckpointManager
     dir (latest step) or a bare save_checkpoint path; a ``TrainState``, a
     ``{'state': ...}`` or ``{'params': ...}`` wrapper, or a bare param dict.
-    Floating tensors are cast to ``cfg.dtype`` here, once, so that decode
-    reads weights in the compute dtype. LoRA and int8 weight trees are not
-    ported (ROADMAP A10)."""
+    LoRA adapters get ``lora_scale`` through ``rewrap_lora``; with None
+    each keeps the scale the set stores, and one that stores none (a set
+    converted from the JAX package) gets 1.0. Floating tensors (int8 and LoRA scales too, as the
+    JAX package casts them) are cast to ``cfg.dtype`` here, once, so that
+    decode reads weights in the compute dtype; int8 codes stay int8."""
     from tensorflowonspark_tpu_torch.compute.checkpoint import (
         CheckpointManager,
         restore_checkpoint,
     )
+    from tensorflowonspark_tpu_torch.ops.lora import S, rewrap_lora
 
-    if lora_scale is not None:
-        raise NotImplementedError("--lora-scale (LoRA checkpoints) is not ported yet: ROADMAP A10")
     with CheckpointManager(checkpoint) as mgr:
         step = mgr.latest_step()
         tree = mgr.restore(step) if step is not None else None
     if tree is None:
         tree = restore_checkpoint(checkpoint)
     tree = llama_params_of(tree, checkpoint)
+    if lora_scale is not None:
+        tree = rewrap_lora(tree, float(lora_scale))
+    else:  # the stored scales win over the 1.0 default
+        tree = {**rewrap_lora(tree, 1.0), **{n: t for n, t in tree.items() if n.endswith(S)}}
     return {n: t.to(cfg.dtype) if t.is_floating_point() else t for n, t in tree.items()}
 
 
 def llama_params_of(tree, checkpoint: str) -> dict:
     """The Llama param dict (name -> tensor) of a restored checkpoint tree:
     a ``TrainState``, a ``{'state': ...}`` or ``{'params': ...}`` wrapper,
-    or a bare param dict. Raises ``ValueError`` for a tree that holds no
-    Llama params, ``NotImplementedError`` for LoRA and int8 weight trees
-    (ROADMAP A10)."""
+    or a bare param dict, int8 and LoRA entries included (``ops.quant``,
+    ``ops.lora``). Raises ``ValueError`` for a tree that holds no Llama
+    params or a leaf that is not a tensor."""
     import torch
 
     for key in ("state", "params"):
@@ -155,10 +167,6 @@ def llama_params_of(tree, checkpoint: str) -> dict:
             f"{sorted(tree) if isinstance(tree, dict) else type(tree)})"
         )
     for name, leaf in tree.items():
-        if isinstance(leaf, dict) and {"q", "scale"} <= set(leaf):
-            raise NotImplementedError(f"{name}: int8 weights are not ported yet: ROADMAP A10")
-        if isinstance(leaf, dict) and {"a", "b"} <= set(leaf):
-            raise NotImplementedError(f"{name}: LoRA adapters are not ported yet: ROADMAP A10")
         if not isinstance(leaf, torch.Tensor):
             raise ValueError(f"checkpoint {checkpoint}: {name} is not a tensor")
     return tree
@@ -166,13 +174,15 @@ def llama_params_of(tree, checkpoint: str) -> dict:
 
 def load_model(cfg, params: dict, device=None):
     """A ``Llama`` on ``device`` (CUDA unless named) whose parameters are
-    ``params`` in ``cfg.dtype``: decode reads them as they are, with no
-    cast per call."""
-    from tensorflowonspark_tpu_torch.models.llama import Llama
+    ``params`` in ``cfg.dtype`` (int8 codes stay int8): decode reads them
+    as they are, with no cast per call. The weight set's format (plain,
+    int8, LoRA adapters or a bank) becomes the model's
+    (``models.llama.adopt_params``)."""
+    from tensorflowonspark_tpu_torch.models.llama import Llama, adopt_params
 
     model = Llama(cfg, device=device)
-    model.to(cfg.dtype)
-    model.load_state_dict(params)
+    adopt_params(model, {n: t.to(cfg.dtype) if t.is_floating_point() else t
+                         for n, t in params.items()})
     return model
 
 
@@ -301,7 +311,7 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("--batch-size must be >= 1")
     device = resolve_device(args.device)
     cfg = _load_config(args)
-    model = load_model(cfg, _load_params(args.checkpoint, cfg), device)
+    model = load_model(cfg, _load_params(args.checkpoint, cfg, args.lora_scale), device)
 
     with open(args.prompts) as f:
         rows = [json.loads(line) for line in f if line.strip()]

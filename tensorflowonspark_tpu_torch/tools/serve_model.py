@@ -81,13 +81,21 @@ channel (a ``LATEST`` pointer at committed checkpoint directories, polled
 every ``--rollout-poll`` seconds). ``/stats`` carries its state under
 ``rollout``.
 
+LoRA banks and int8 weights: a checkpoint of a bank (``ops.lora.
+multi_lora_bank``) serves each request's ``adapter`` (0 = the base model;
+out of range: 400, as the engine raises) at the scale its checkpoint
+stores (``--gen-lora-scale`` overrides it; a set that stores none gets
+1.0), ``/admin/reload`` of ``"kind": "lora"``
+rolls adapter factors alone (a ``rollout.lora_state`` checkpoint), and
+``/score`` runs the bank's slot 0; an int8 checkpoint
+(``ops.quant.quantize_tree``) serves as it is.
+
 Not ported yet; each raises ``NotImplementedError`` at startup naming its
 ROADMAP item: ``--export-dir``, ``--batch-size`` and ``/predict`` (A12,
 ``api/export``), ``--gen-mesh`` (A9b, mesh/TP decode), a draft model
-(A10), LoRA banks (``--gen-lora-scale``, a request's ``adapter`` != 0, a
-``/admin/reload`` of ``kind`` lora; A10), and the SLO/history plane with
-``/statusz`` (``--slo-*``, ``--obs-window-s``; A12). A request to
-``/predict`` or ``/statusz`` answers 501 with the same message.
+(A10), and the SLO/history plane with ``/statusz`` (``--slo-*``,
+``--obs-window-s``; A12). A request to ``/predict`` or ``/statusz`` answers
+501 with the same message.
 """
 
 from __future__ import annotations
@@ -132,7 +140,6 @@ def _refuse_unported(gen: dict | None, export_dir: str | None = None) -> None:
         (gen.get("draft_checkpoint") or gen.get("draft_model")
          or gen.get("draft_config_overrides") or gen.get("spec_k") is not None,
          "a draft model (speculative decoding)", "A10"),
-        (gen.get("lora_scale") is not None, "LoRA banks (--gen-lora-scale)", "A10"),
         (any(gen.get(k) is not None for k in ("slo_ttft_s", "slo_latency_s", "slo_error_budget",
                                                "obs_window_s")), *_STATUSZ),
     ]
@@ -292,9 +299,6 @@ class _Handler(BaseHTTPRequestHandler):
                 path=str(payload["path"]),
                 step=None if payload.get("step") is None else int(payload["step"]),
             )
-        except NotImplementedError as e:  # kind='lora': ROADMAP A10
-            self._reply(501, {"error": str(e)})
-            return
         except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
             self._reply(400, {"error": str(e)})
             return
@@ -488,10 +492,6 @@ class _Handler(BaseHTTPRequestHandler):
                     )
         except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
             self._reply(400, {"error": str(e)})
-            return
-        if adapter is not None and adapter != 0:
-            self._reply(501, {"error": _not_ported("LoRA banks (a request's adapter != 0)",
-                                                   "A10")})
             return
         from tensorflowonspark_tpu_torch.tools.generate_text import PromptError
 
@@ -940,7 +940,8 @@ def _load_model(gen: dict):
     device = resolve_device(gen.get("device"))
     cfg = _load_config(argparse.Namespace(model=gen["model"],
                                           config_overrides=gen.get("config_overrides")))
-    return cfg, device, lambda: load_model(cfg, _load_params(gen["checkpoint"], cfg), device)
+    return cfg, device, lambda: load_model(
+        cfg, _load_params(gen["checkpoint"], cfg, gen.get("lora_scale")), device)
 
 
 def _build_engine(gen: dict):
@@ -1288,7 +1289,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model id reported by GET /v1/models and echoed in /v1/completions "
                    "envelopes")
     p.add_argument("--gen-lora-scale", type=float, default=None,
-                   help="LoRA checkpoints (not ported: ROADMAP A10)")
+                   help="override the LoRA adapters' scale alpha/rank (default: the scale "
+                   "the checkpoint stores, else 1.0, add_lora's default alpha=rank)")
     p.add_argument("--gen-warmup", action="store_true",
                    help="continuous engine: run every decode/prefill program once at startup "
                    "so the first real request pays neither the first kernel launches nor the "

@@ -244,12 +244,16 @@ def test_weight_bridge_round_trip():
 
 
 def test_quantized_kernels_not_ported():
+    """Quantized kernels do reach the port: each ``QuantTensor`` becomes
+    int8 codes under the weight's name and fp32 scales beside it
+    (``tests/test_torch_quant.py`` holds them to the JAX package)."""
     from tensorflowonspark_tpu.ops.quant import quantize_tree
 
     jcfg, _ = _configs()
     params = jllama.Llama(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        params_from_jax(quantize_tree(params["params"]))
+    got = params_from_jax(quantize_tree(params["params"], min_size=1 << 14))
+    assert got["layers.0.mlp.up_proj.weight"].dtype == torch.int8
+    assert tuple(got["layers.0.mlp.up_proj.weight_scale"].shape) == (jcfg.intermediate_size, 1)
 
 
 def test_unported_features_raise():

@@ -433,6 +433,37 @@ def test_chip_smoke_fleet_phase_rehearses_on_cpu(capsys):
     assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
 
 
+def test_chip_smoke_lora_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase lora runs on the CPU at a tiny size: every check
+    of (a)-(e) passes — the adapters' fine-tune with its frozen base, the
+    merged int8 decode against bf16 and the example through tfcluster.run,
+    the bank's routing and serving and its prefix isolation, the
+    adapters-only swap and the lora rollout across a fleet, the server over
+    a bank checkpoint — and no kernel is launched."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    launches = smoke.phase_lora(fa, layers=2, rehearse={"device": "cpu", "tiny": True, "sizes": {
+        "rank": 4, "batch": 2, "seq": 64, "steps": 4, "dec_batch": 2, "dec_min": 8,
+        "dec_width": 32, "dec_new": 8, "time_prompt": 8, "time_steps": 2,
+        "example_args": ["--steps", "2", "--seq", "32", "--batch-size", "2", "--lora-rank", "4",
+                         "--generate", "4", "--quantize-decode"],
+        "requests": 8, "threads": 4, "min_len": 4, "max_len": 30, "min_new": 4, "max_new": 8,
+        "widths": (16, 32), "slots": 4, "block": 2, "chunk": 8, "prefix": 4, "prefix_prompt": 20,
+        "route_rows": 4, "route_len": 16, "roll_requests": 4, "roll_threads": 2, "roll_new": 6,
+        "budget": 16, "score_rows": 2, "quant_min": 1 << 12}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "lora_checks" and check["ok"], check
+    assert sorted(check["checks"]) == ["a_train", "b_example", "b_int8", "c_bank_rows", "c_prefix",
+                                       "c_serve", "d_fleet", "d_prior_intact", "d_swap",
+                                       "e_server"]
+    assert check["err"]["a_train"]["frozen_no_grad"]
+    assert check["err"]["c_prefix"]["same_adapter_hits"] >= 1
+    assert lines[-2]["part"] == "numbers"
+    assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
@@ -446,7 +477,8 @@ FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_
           "router_no_failover_before_first_token", "l2_key_without_version",
           "l2_filler_before_event", "cache_close_leaves_conns_open",
           "loader_writes_running_tensors", "publish_keeps_reference", "rollback_skips_restore",
-          "latest_crc_unchecked"]
+          "latest_crc_unchecked", "bank_gather_off_by_one", "int8_scale_on_input_axis",
+          "lora_swap_writes_in_place"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)

@@ -126,21 +126,23 @@ def test_channel_is_read_alike_by_both_packages(writer, case, tmp_path):
 
 
 def test_lora_publications_are_refused_naming_a10(tmp_path):
-    """A LoRA pointer (the JAX package's) reads as NotImplementedError
-    naming ROADMAP A10; the port publishes none and builds no LoRA update."""
+    """LoRA pointers are no longer refused: one the JAX package publishes
+    reads in the port as kind 'lora' and the other way round, a LoRA
+    update builds, and a weight set without adapters has no LoRA payload.
+    Only an unknown kind is refused."""
     ch, ck = str(tmp_path / "chan"), _committed(tmp_path)
     j_rollout.publish_checkpoint(ch, version="a1", path=ck, kind="lora")
     assert j_rollout.read_latest(ch).kind == "lora"
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_rollout.read_latest(ch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_rollout.publish_checkpoint(ch, version="a2", path=ck, kind="lora")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_rollout.WeightsUpdate(version="a3", kind="lora", path=ck)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_rollout.lora_state({})
+    got = t_rollout.read_latest(ch)
+    assert (got.version, got.kind, got.path) == ("a1", "lora", ck)
+    t_rollout.publish_checkpoint(ch, version="a2", path=ck, kind="lora")
+    assert j_rollout.read_latest(ch).kind == t_rollout.read_latest(ch).kind == "lora"
+    assert t_rollout.WeightsUpdate(version="a3", kind="lora", path=ck).kind == "lora"
+    assert t_rollout.lora_state({}) is None
     with pytest.raises(ValueError, match="kind"):
         t_rollout.WeightsUpdate(version="a4", kind="delta", path=ck)
+    with pytest.raises(ValueError, match="kind"):
+        t_rollout.publish_checkpoint(ch, version="a5", path=ck, kind="delta")
 
 
 def test_update_owns_a_snapshot_cast_once():

@@ -366,14 +366,16 @@ def test_admin_reload_status_codes_on_one_engine(tiny, reference):
     """One engine: 403 without a token, with a wrong one and with the
     token's file path; 400 on a bad body; 200 with the token (Bearer or
     X-Admin-Token) and v1's completions stamped with the version; 409 on a
-    cut shape; 501 on a LoRA reload; /stats carries the rollout."""
+    cut shape, and on a LoRA reload of a checkpoint that holds no adapter
+    factors of the running weights; /stats carries the rollout."""
     bad = save_checkpoint(str(tiny["root"] / "bad"), {"params": _cut(tiny["p1"])})
     with _serving(_gen(tiny["ck0"], admin_token="sekrit")) as url:
         body = {"version": "v1", "path": tiny["ck1"]}
         assert _post(url, "/admin/reload", body)[0] == 403
         assert _post(url, "/admin/reload", body, {"Authorization": "Bearer nope"})[0] == 403
         assert _post(url, "/admin/reload", {"path": tiny["ck1"]}, BEARER)[0] == 400
-        assert _post(url, "/admin/reload", dict(body, kind="lora"), BEARER)[0] == 501
+        code, out = _post(url, "/admin/reload", dict(body, kind="lora"), BEARER)
+        assert code == 409 and out["error_type"] == "WeightsIncompatible", out
         code, out = _post(url, "/admin/reload", body, {"X-Admin-Token": "sekrit"})
         assert code == 200 and out["status"] == "completed" and out["version"] == "v1", out
         code, out = _post(url, "/generate", {"prompts": PROMPTS, "versions": True,
@@ -388,7 +390,7 @@ def test_admin_reload_status_codes_on_one_engine(tiny, reference):
         assert code == 409 and out["error_type"] == "WeightsIncompatible", out
         st = _stats(url)["rollout"]
         assert st["target_version"] == "v1" and st["outcomes"] == {"completed": 1,
-                                                                   "rolled_back": 1}
+                                                                   "rolled_back": 2}
         code, out = _post(url, "/generate", {"prompts": PROMPTS, "versions": True})
         assert out["weights_versions"] == ["v1"] * len(PROMPTS)
 

@@ -154,7 +154,6 @@ REFUSED = {
     "draft_checkpoint": (dict(draft_checkpoint="/nonexistent"), "A10"),
     "spec_k": (dict(spec_k=4), "A10"),
     "draft_model": (dict(draft_model="tiny"), "A10"),
-    "lora_scale": (dict(lora_scale=1.0), "A10"),
     "slo_ttft_s": (dict(slo_ttft_s=2.5), "A12"),
     "obs_window_s": (dict(obs_window_s=5.0), "A12"),
     "slo_error_budget": (dict(slo_error_budget=0.01), "A12"),
@@ -201,8 +200,9 @@ def test_unported_paths_answer_501(checkpoints):
         assert code == 501 and "ROADMAP A12, api/export" in body
         code, body = _get(url, "/statusz")
         assert code == 501 and "ROADMAP A12" in body
+        # adapters are served from a LoRA bank: this checkpoint has none
         code, body = _post(url, "/generate", {"prompts": [[1, 2]], "adapter": 1})
-        assert code == 501 and "ROADMAP A10" in body
+        assert code == 400 and "MultiLoraTensor bank" in body
         code, body = _post(url, "/generate", {"prompts": [[1] * 17]})
         assert code == 400 and "prompt width" in body
 

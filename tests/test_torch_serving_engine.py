@@ -479,11 +479,21 @@ def test_unported_options_raise_naming_their_roadmap_item(jparams):
     eng = ContinuousBatcher(model, slots=1, prompt_widths=(8,), prefill_chunk=4, prefix_cache=1)
     try:
         eng.attach_prefix_l2(None)
-        with pytest.raises(NotImplementedError, match="A10"):
-            eng.swap_weights({}, version="x", kind="lora")
-        int8 = {n: {"q": t, "scale": t} for n, t in model.named_parameters()}
-        with pytest.raises(NotImplementedError, match="A10"):
-            eng.swap_weights(int8, version="x")
+        # LoRA and int8 weights are ported (tests/test_torch_lora_serving.py):
+        # an engine without adapters takes no factors, a plain one no int8 set,
+        # and a leaf that is not a tensor is refused before anything installs
+        from tensorflowonspark_tpu_torch.ops.quant import quantize_tree
+
+        name = "layers.0.attn.q_proj.weight_lora_a"
+        with pytest.raises(WeightsIncompatible, match="_lora_a"):
+            eng.swap_weights({name: torch.zeros(2, 128)}, version="x", kind="lora")
+        own = dict(model.named_parameters())
+        with pytest.raises(WeightsIncompatible, match="names differ"):
+            eng.swap_weights(quantize_tree(own, min_size=1), version="x")
+        dicts = {n: {"q": t, "scale": t} for n, t in own.items()}
+        with pytest.raises(WeightsIncompatible, match="not a tensor"):
+            eng.swap_weights(dicts, version="x")
+        assert eng.weights_version == "v0"
     finally:
         eng.close()
 
