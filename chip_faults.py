@@ -45,7 +45,14 @@ lookup under another weights version a miss, an entry offered while the
 device is stalled equal to what was written, 50 lookups after
 ``CacheServer.close()`` all misses with no connection left open, and a
 dropped dispatch and a wedged replica under traffic: every request
-resolved once, failovers, respawns).
+resolved once, failovers, respawns), and ``chip_smoke.phase_moe`` at 2
+layers, parts a and b, for ``parallel/moe.py`` and the MoE aux loss in
+``models/llama.py`` (a tiny MoE Llama's loss against cross entropy plus
+aux losses on the CPU, one MoE block at full width against a plain
+version at capacity factor 0.25, where the priority order decides the
+drops), and ``chip_smoke.phase_spec`` at 4 layers, part a, for
+``models/speculative.py`` (greedy speculative decoding against plain
+greedy, token for token in fp32).
 Faults that show only across ranks (a dropped ``all_reduce``, a rank's
 rows lost from an uneven split) cannot show on one card; the CPU tests
 plant those at 2 ranks (``tests/test_torch_mesh.py``). The unchanged
@@ -86,6 +93,8 @@ CACHE_SERVICE = Path("tensorflowonspark_tpu_torch/cachetier/service.py")
 ROLLOUT = Path("tensorflowonspark_tpu_torch/serving/rollout.py")
 LORA = Path("tensorflowonspark_tpu_torch/ops/lora.py")
 QUANT = Path("tensorflowonspark_tpu_torch/ops/quant.py")
+MOE = Path("tensorflowonspark_tpu_torch/parallel/moe.py")
+SPECULATIVE = Path("tensorflowonspark_tpu_torch/models/speculative.py")
 CLUSTER_CHECK = "phase_cluster(layers=4)"
 MESH_CHECK = "phase_mesh(fa, bn, layers=4, conv_batch=32)"
 ELASTIC_CHECK = 'phase_elastic(layers=2, rehearse={"sizes": {"batch": 2, "seq": 256, "wait_s": 120.0}})'
@@ -94,15 +103,19 @@ SERVE_CHECK = "phase_serve(fa, layers=4)"
 FLEET_CHECK = 'phase_fleet(fa, layers=4, parts="bc")'
 ROLLOUT_CHECK = 'phase_rollout(fa, layers=4, parts="ab")'
 LORA_CHECK = 'phase_lora(fa, layers=4, parts="abcd")'
+MOE_CHECK = 'phase_moe(fa, layers=2, parts="ab")'
+SPEC_CHECK = 'phase_spec(fa, layers=4, parts="a")'
 CHECKS = {FLASH: "check_slice(fa)", BN: "check_bn_edges(bn)", PREFETCH: CLUSTER_CHECK,
           CKPT: CLUSTER_CHECK, ATTENTION: MESH_CHECK, BN_ROUTE: MESH_CHECK,
           ELASTIC: ELASTIC_CHECK, NODE: ELASTIC_CHECK, LLAMA: DECODE_CHECK, ENGINE: SERVE_CHECK,
           ROUTER: FLEET_CHECK, PREFIX_L2: FLEET_CHECK, CACHE_SERVICE: FLEET_CHECK,
-          ROLLOUT: ROLLOUT_CHECK, LORA: LORA_CHECK, QUANT: LORA_CHECK}
+          ROLLOUT: ROLLOUT_CHECK, LORA: LORA_CHECK, QUANT: LORA_CHECK, MOE: MOE_CHECK,
+          SPECULATIVE: SPEC_CHECK}
 # faults whose check is not their source's
 FAULT_CHECKS = {"mesh_restore_skips_opt_state": MESH_CHECK,
                 "elastic_plain_attention": ELASTIC_CHECK,
-                "lora_swap_writes_in_place": LORA_CHECK}
+                "lora_swap_writes_in_place": LORA_CHECK,
+                "moe_aux_loss_dropped": MOE_CHECK}
 
 # name -> (source, statement as in the source, the faulty statement)
 FAULTS = {
@@ -394,6 +407,30 @@ FAULTS = {
         "placed[name] = self._place_leaf(old[name], t, name)",
         "placed[name] = old[name].copy_(t)",
     ),
+    # MoE routing priority flattened choices-major (every token's first
+    # choice before any second one), where the reference's is token-major
+    "moe_priority_choices_major": (
+        MOE,
+        "    order = expert.reshape(t * k)\n    onehot = F.one_hot(order, e)  # (T*k, E)\n"
+        "    before = torch.cumsum(onehot, dim=0) - onehot\n"
+        "    slot = before.gather(1, order[:, None]).reshape(t, k)",
+        "    order = expert.t().reshape(t * k)\n    onehot = F.one_hot(order, e)  # (T*k, E)\n"
+        "    before = torch.cumsum(onehot, dim=0) - onehot\n"
+        "    slot = before.gather(1, order[:, None]).reshape(k, t).t()",
+    ),
+    # llama_loss_fn leaves the MoE layers' aux losses out of the loss
+    "moe_aux_loss_dropped": (
+        LLAMA,
+        "        loss = loss + aux.loss",
+        "        loss = loss",
+    ),
+    # speculative greedy accepts one draft past the first mismatch
+    "spec_accepts_past_mismatch": (
+        SPECULATIVE,
+        "            accepted = torch.cumprod((emit[:, :k] == drafts).long(), dim=1).sum(1)",
+        "            accepted = (torch.cumprod((emit[:, :k] == drafts).long(), dim=1).sum(1)"
+        " + 1).clamp(max=k)",
+    ),
 }
 # the check of phase rollout that must refuse each of its faults (its JSON
 # line names every check it failed)
@@ -403,7 +440,10 @@ NAMED_CHECKS = {"loader_writes_running_tensors": "b3_verify_seat1",
                 "latest_crc_unchecked": "b4_torn_latest",
                 "bank_gather_off_by_one": "c_bank_rows",
                 "int8_scale_on_input_axis": "b_int8",
-                "lora_swap_writes_in_place": "d_prior_intact"}
+                "lora_swap_writes_in_place": "d_prior_intact",
+                "moe_priority_choices_major": "b_block_low_cf",
+                "moe_aux_loss_dropped": "a_loss_cpu",
+                "spec_accepts_past_mismatch": "a_greedy_fp32"}
 
 
 def check_of(name: str) -> str:
@@ -447,8 +487,8 @@ def start(label: str, name: str, checks: list, workdir: Path) -> subprocess.Pope
 # checks whose children run after the others, in this order: check ->
 # (label, how many children at once)
 LATER = {DECODE_CHECK: ("decode", 7), SERVE_CHECK: ("serve", 6), FLEET_CHECK: ("fleet", 5),
-         ROLLOUT_CHECK: ("rollout", 3), LORA_CHECK: ("lora", 4),
-         ELASTIC_CHECK: ("elastic", 3)}
+         ROLLOUT_CHECK: ("rollout", 3), LORA_CHECK: ("lora", 4), MOE_CHECK: ("moe", 3),
+         SPEC_CHECK: ("spec", 2), ELASTIC_CHECK: ("elastic", 3)}
 
 
 def jobs(only: list[str] | None = None) -> list[tuple[list, int]]:

@@ -4,7 +4,8 @@ then train llama_1b and the BatchNorm conv nets for a few steps through them.
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-seeds 1 2 3   # phase decode alone, per seed
 
-Phases (one JSON line each, or more; any failure exits non-zero):
+Phases (one JSON line each, or more; any failure exits non-zero; the
+``script`` line gives the whole run's seconds and each phase's):
 
 1. device — the card, its power limit, torch/CUDA versions, the kernel
    builds (one nvcc per source, all started at once) and ptxas' registers
@@ -82,11 +83,13 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    (one warm-up, 3 timed; losses against phase conv_train's first four; 53
    launches of each statistics kernel a step, all through
    ``mesh_pair_stats``/``mesh_cross_stats``); and a node launched by
-   ``tfcluster.run`` that trains llama_1b on ``ctx.mesh()`` fed by
+   ``tfcluster.run`` that trains llama_1b (at ``SERVING_DEPTH`` when the
+   whole script runs) on ``ctx.mesh()`` fed by
    ``DevicePrefetcher.from_feed(mesh=…)``, saves the mesh state sharded,
    restores it into a state from seed 1 and takes one more step from each
    (every restored tensor bit-equal, the two losses equal).
-9. elastic — membership changes mid-run: first the uninterrupted run
+9. elastic — membership changes mid-run (llama_1b at ``SERVING_DEPTH``
+   when the whole script runs): first the uninterrupted run
    (phase train's configuration, 24 steps on Zipf batches that are a pure
    function of the step index; its final state to a file), then
    ``tfcluster.run(num_executors=2, elastic=True, input_mode=TENSORFLOW,
@@ -135,7 +138,7 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    ``decode_batches`` and scorer.
 11. serve — the continuous-batching engine and the HTTP server on phase
    decode's model (``LlamaConfig.llama_1b`` at full width, its depth cut
-   to ``SERVING_DEPTH`` = 8 layers when the whole script runs, bf16
+   to ``SERVING_DEPTH`` = 4 layers when the whole script runs, bf16
    weights from seed 0, 1024 cache slots; limits in ``SERVE_TOL``), the
    engine at 8
    slots, prompt widths 128/256/512, decode_block 8, pipeline_depth 2:
@@ -269,7 +272,52 @@ Phases (one JSON line each, or more; any failure exits non-zero):
    ``adapter`` 9 a 400, ``/admin/reload`` of kind lora 200 and the new
    adapters served, ``/score`` at width 769 (16 B1 launches) against the
    plain attention. Each part runs guarded: an exception fails its check by
-   name. Peak device memory per part, ``wall_s``, each part's seconds.
+   name. Parts (c)-(e) serve the first ``SERVING_DEPTH`` blocks of (a)'s
+   weights and adapters when the whole script runs. Peak device memory per
+   part, ``wall_s``, each part's seconds.
+15. moe — MoE experts (``parallel/moe.py``) on ``LlamaConfig.llama_1b(
+   num_experts=8, moe_top_k=2)`` (capacity factor 2.0), seed 0, limits in
+   ``MOE_TOL``: (a) the train step at 4 layers (depth cut for memory),
+   batch 8, seq 1024, fp32 params, bf16 compute, ``adamw(1e-4, moment_dtype=
+   bf16)``: one warm-up and 5 timed steps, the loss falls, 4 launches of
+   each of B1-B3 a step, each layer's aux loss and dropped share, two
+   profiled steps; the first loss against cross entropy plus the aux losses
+   of the same forward; a tiny MoE Llama's ``llama_loss_fn`` on the card
+   against cross entropy plus aux losses on the CPU. (b) One MoE block at
+   full width in bf16 on a (2, 256) batch against a plain fp32 version on
+   the CPU, at capacity factor 2.0 and 0.25 (drops: the priority order
+   decides): kept assignments equal, output within the limit. (c) 16
+   layers, in fp32 and in bf16: greedy ``generate`` at batch 8 (prompts
+   64-512, right-padded, 64 new) against a teacher-forced forward at each
+   row's positions before its first token routed otherwise in the two (an
+   expert chosen otherwise or an assignment dropped; in bf16 one rounding
+   step flips near-tied choices, so few positions are held there): fp32
+   to 1e-3 with at least half the positions held, bf16 by phase decode's
+   limit and rule; the dropped shares of both; the bf16 decode step's ms at
+   batch 1 and 8 against the bytes a step reads (every expert). (d) ``ContinuousBatcher`` (8 slots)
+   at ``SERVING_DEPTH`` over (c)'s first blocks: one request alone against
+   ``generate`` alone (parted only where generate's top-2 gap is within the
+   limit), then 8 staggered requests, each against ``generate`` alone and
+   the dropped share, reported with no limit (dead slots and batch mates
+   take capacity, and prefill at a bucket's width rounds otherwise than at
+   the prompt's, which flips near-tied expert choices in bf16). Peak
+   memory per part, ``wall_s``, each part's seconds.
+16. spec — speculative decoding (``models/speculative.py``) on
+   ``LlamaConfig.llama_1b`` at full depth, seed 0, k = 4, limits in
+   ``SPEC_TOL``, three drafts: the target itself, an early exit (its
+   embedding, first 2 blocks, final norm and head, shared tensors) and a
+   random 2-layer llama_1b (seed 1): (a) in fp32 and in bf16, at batch 8
+   (prompts 64-512, right-padded, 64 new) each draft against plain greedy
+   ``generate`` (fp32: equal but at a near-tie; bf16: parted only where
+   plain's top-2 gap is within phase serve's), accepted drafts per verify
+   (the target itself k in fp32), host reads; tokens/s at batch 1 and 8
+   against ``generate`` (32 new tokens); (b) ``speculative_accept`` on the card at V=8 over
+   20,000 draws against the target's p, and one sampled decode through the
+   early exit; (c) ``serve_model`` (fixed path) with the random draft saved
+   and loaded by ``--draft-model 1b --draft-config-overrides
+   '{"num_layers": 2}'``: ``/generate`` equal to ``generate_text``'s CLI on
+   the same prompts, and ``--gen-engine continuous`` with a draft refused
+   with the reference's ``ValueError``.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
@@ -279,7 +327,8 @@ timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
 ``/score`` call of phase serve's server, ``fleet_launches`` that of phase
 fleet's server, ``rollout_launches`` phase rollout's trainer steps and
 its server's ``/score``, ``lora_launches`` phase lora's fine-tune steps
-and its server's ``/score``),
+and its server's ``/score``, ``moe_launches`` phase moe's timed train
+steps, ``spec_launches`` phase spec's greedy decodes, none),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1318,11 +1367,12 @@ def mesh_check(name, err, tol, ok):
         raise SystemExit(f"mesh phase failed: {name}")
 
 
-def phase_mesh(fa, bn, ref=None, layers=16, conv_batch=None, rehearse=None):
+def phase_mesh(fa, bn, ref=None, layers=16, conv_batch=None, rehearse=None, node_layers=None):
     """The mesh path on one card, a world of one (see the module docstring,
     phase 8); raises SystemExit when a check fails. ``ref`` holds phase
     train's and phase conv_train's losses and profile to compare with;
-    ``layers`` and ``conv_batch`` cut the sizes (chip_faults.py);
+    ``layers`` and ``conv_batch`` cut the sizes (chip_faults.py),
+    ``node_layers`` the node's depth alone (``layers`` when None);
     ``rehearse`` (``sizes``, ``device="cpu"``) runs it at a tiny size on the
     CPU, where the wrappers take their plain versions."""
     import torch.distributed as dist
@@ -1330,13 +1380,14 @@ def phase_mesh(fa, bn, ref=None, layers=16, conv_batch=None, rehearse=None):
     rehearse = rehearse or {}
     owns_group = not dist.is_initialized()
     try:
-        return _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse)
+        return _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse,
+                           layers if node_layers is None else node_layers)
     finally:  # a group this phase started ends with it, failed or not
         if owns_group and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse):
+def _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse, node_layers):
     from tensorflowonspark_tpu_torch.compute.mesh import make_mesh, shard_batch
     from tensorflowonspark_tpu_torch.compute.train import build_update_step, place
     from tensorflowonspark_tpu_torch.parallel.context import MESH_ROUTES, reset_mesh_routes
@@ -1435,7 +1486,7 @@ def _phase_mesh(fa, bn, ref, layers, conv_batch, rehearse):
     bn_mesh_launches = phase_mesh_conv(bn, mesh, ref, conv_batch or c["conv_batch"], c, cuda)
 
     # 4. a node trains on its mesh and restores a sharded checkpoint
-    phase_mesh_node(layers, rehearse)
+    phase_mesh_node(node_layers, rehearse)
     return flash_mesh_launches, bn_mesh_launches
 
 
@@ -2536,7 +2587,10 @@ def phase_decode(fa, layers=16, rehearse=None, seed=0):
 
 
 # phase serve: sizes (a CPU rehearsal passes smaller ones)
-SERVING_DEPTH = 8  # layers of llama_1b in phases serve, fleet and rollout in the whole script
+# layers of llama_1b, in the whole script, of the paths whose checks hold at
+# any depth: phase mesh's node, phases elastic, serve, fleet and rollout,
+# phase lora (c)-(e) and phase moe (d) (PERF.md, Findings, PR 15)
+SERVING_DEPTH = 4
 SERVE = dict(requests=24, sampled=8, threads=8, min_len=16, max_len=500, min_new=16, max_new=256,
              sampled_new=(16, 64), widths=(128, 256, 512), slots=8, block=8, depth=2,
              stagger=0.05, alone=3, alone_new=48, chunk=128, prefix=4, system=256, chunk_new=64,
@@ -4917,10 +4971,12 @@ def example_check(example, c, ok, err):
         err["b_example"]["output_tail"] = out[-3000:]
 
 
-def phase_lora(fa, layers=16, rehearse=None, seed=0, parts="abcde", train_step_ms=None):
+def phase_lora(fa, layers=16, rehearse=None, seed=0, parts="abcde", train_step_ms=None,
+               serve_layers=None):
     """LoRA and int8 weights on the card (see the module docstring, phase
-    14); raises SystemExit when a check fails. ``layers`` cuts the depth
-    and ``parts`` picks the parts ("a" is needed by the others;
+    14); raises SystemExit when a check fails. ``layers`` cuts the depth,
+    ``serve_layers`` cuts parts (c)-(e) further to the first blocks of (a)'s
+    weights and adapters, and ``parts`` picks the parts ("a" is needed by the others;
     chip_faults.py runs "abcd"); with ``rehearse={"device": "cpu", "tiny":
     True, "sizes": {...}}`` it runs at a tiny size on the CPU. Returns every
     kernel's launches on the phase's main path: the fine-tune's steps and
@@ -5161,6 +5217,19 @@ def phase_lora(fa, layers=16, rehearse=None, seed=0, parts="abcde", train_step_m
             if "e" not in parts:
                 example_check(start_example(c["example_args"], cuda), c, ok, err)
                 lap("b_example")
+
+        if serve_layers is not None and serve_layers < cfg.num_layers:
+            # (c)-(e) serve the first serve_layers blocks of (a)'s weights and
+            # adapters, through a module tree of that depth
+            def keep(tree):
+                return {n: t for n, t in tree.items()
+                        if not n.startswith("layers.") or int(n.split(".")[1]) < serve_layers}
+
+            cfg = dataclasses.replace(cfg, num_layers=serve_layers)
+            tol["score_launches_per_call"] = serve_layers if cuda else 0
+            params, base, bank32, base16 = keep(params), keep(base), keep(bank32), keep(base16)
+            adapters = [keep(a) for a in adapters]
+            model = Llama(cfg, device=device, seed=seed)
 
         if "c" in parts:
             with Guarded("c_bank", ok, err):
@@ -5517,6 +5586,742 @@ def phase_lora(fa, layers=16, rehearse=None, seed=0, parts="abcde", train_step_m
     return windows.total
 
 
+MOE = dict(layers=4, experts=8, top_k=2, batch=8, seq=1024, steps=5, lr=1e-4, block_batch=2,
+           block_seq=256, low_cf=0.25, check_seq=64, dec_batch=8, dec_width=512, dec_min=64,
+           dec_new=64, time_prompt=128, time_steps=16, eng_slots=8, eng_widths=(128, 256, 512),
+           eng_block=8, eng_depth=2, eng_requests=8, eng_threads=8, eng_min=16, eng_max=500,
+           eng_new=64, eng_stagger=0.05, alone_len=128)
+# Limits of phase moe. "loss_cpu": a tiny MoE Llama's loss through
+# llama_loss_fn on the card in fp32 against cross entropy plus the layers'
+# aux losses computed on the CPU in fp32 from the same weights, |diff| (the
+# aux losses sum to ~0.02 there, so a loss without them reads ~200x
+# the limit). "loss_parts": the train step's first loss against cross entropy
+# plus the aux losses of the same bf16 forward, |diff|. "block": one MoE
+# block at full width in bf16 on the card against a plain fp32 version on
+# the CPU (its own routing loop, token-major priority), max |diff| over the
+# reference's rms; the kept assignments must be equal. "logits_fp32" /
+# "logits_bf16": decode against a teacher-forced forward, max |diff| of the
+# logits and the confident-token gap, at each row's positions before its
+# first token routed otherwise (bf16: phase decode's limit); in fp32 at
+# least "fp32_held_share" of the positions must be held. "gap": phase
+# serve's confident-token gap (the engine against generate alone). On the
+# H100 at seed 0 (PERF.md, PR 15): loss_cpu read 3.9e-7 (a loss without
+# the aux losses 0.0206), loss_parts 5.8e-7, block 0.037 and 0.074 (the
+# choices-major fault 8.45, its kept assignments unequal); fp32 decode held
+# 263 of 512 positions (rows 0-3 whole; the later rows lose capacity to the
+# rows before them within 0-5 steps) at 4.1e-5, and bf16 held none (a
+# prompt token routed otherwise in every row).
+MOE_TOL = dict(loss_cpu=1e-4, loss_parts=1e-3, block=0.1, logits_fp32=1e-3,
+               logits_bf16=DECODE_TOL["logits"], fp32_held_share=0.25, gap=SERVE_TOL["logits"])
+
+
+class MoEDrops:
+    """Forward hooks on every expert layer of ``model`` while inside: each
+    call's ``(layer, MoEAux)`` in call order (``dropped`` (B, S),
+    ``experts`` (B, S, k), ``assigned``)."""
+
+    def __init__(self, model):
+        self.model, self.calls, self._handles = model, [], []
+
+    def __enter__(self):
+        for i, block in enumerate(self.model.layers):
+            self._handles.append(block.mlp.register_forward_hook(self._hook(i)))
+        return self
+
+    def _hook(self, i):
+        def hook(mod, inputs, out):
+            self.calls.append((i, out[1]))
+        return hook
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+
+    def share(self, calls=None) -> float:
+        """Dropped assignments over all assignments of ``calls`` (default:
+        every call)."""
+        calls = self.calls if calls is None else calls
+        assigned = sum(a.assigned for _, a in calls)
+        return float(sum(int(a.dropped.sum()) for _, a in calls)) / max(assigned, 1)
+
+
+def moe_routing_prefix(dec, forced, lengths, width, new):
+    """Per row of a greedy decode (``dec``: :class:`MoEDrops` of its
+    prefill and ``new - 1`` steps) and a teacher-forced forward over the
+    same rows (``forced``): how many of the row's generated positions come
+    before the first token whose routing differs between the two (another
+    expert chosen, or an assignment dropped in one), where the two compute
+    the same function. A prompt token routed otherwise leaves none."""
+    nl = len(forced.calls)
+    b = lengths.shape[0]
+    dev = lengths.device
+    real = torch.arange(width, device=dev)[None, :] < lengths[:, None]
+    gen_pos = lengths[:, None] + torch.arange(new - 1, device=dev)[None, :]  # (B, new-1)
+    rows = torch.arange(b, device=dev)[:, None]
+    prompt_bad = torch.zeros(b, dtype=torch.bool, device=dev)
+    gen_bad = torch.zeros(b, new - 1, dtype=torch.bool, device=dev)
+    for layer in range(nl):
+        fa_ = forced.calls[layer][1]
+        pa = dec.calls[layer][1]
+        off = (pa.experts != fa_.experts[:, :width]).any(-1) | (pa.dropped > 0) | (
+            fa_.dropped[:, :width] > 0)
+        prompt_bad |= (off & real).any(1)
+        if new > 1:
+            steps = [dec.calls[nl * t + layer][1] for t in range(1, new)]
+            de = torch.stack([a.experts[:, 0] for a in steps], 1)  # (B, new-1, k)
+            dd = torch.stack([a.dropped[:, 0] for a in steps], 1)
+            gen_bad |= ((de != fa_.experts[rows, gen_pos]).any(-1) | (dd > 0)
+                        | (fa_.dropped[rows, gen_pos] > 0))
+    gen_bad = gen_bad.cpu()
+    first = []
+    for r in range(b):
+        hit = gen_bad[r].nonzero()
+        first.append(0 if bool(prompt_bad[r]) else (int(hit[0]) + 1 if len(hit) else new))
+    return first
+
+
+def moe_decode_check(model, prompt, lens, new, tol_logits):
+    """Greedy ``generate`` of the MoE ``model`` on right-padded ``prompt``
+    (lengths ``lens``) against a teacher-forced forward: ``generate``'s
+    tokens equal the driven prefill/decode_step's, the logits within
+    ``tol_logits`` and the tokens equal the forward's argmax where its
+    top-2 gap exceeds it, at each row's positions before its first token
+    routed otherwise (:func:`moe_routing_prefix`); the dropped shares."""
+    from tensorflowonspark_tpu_torch.models.llama import generate
+
+    b, width = prompt.shape
+    dev = prompt.device
+    toks = generate(model, prompt, new, prompt_lengths=lens)
+    with MoEDrops(model) as dec:
+        cap_toks, cap_logits = greedy_capture(model, prompt, new, lens)
+    forced = torch.zeros(b, width + new, dtype=torch.long, device=dev)
+    for i, n in enumerate(lens.tolist()):
+        forced[i, :n] = prompt[i, :n]
+        forced[i, n:n + new] = cap_toks[i]
+    with torch.no_grad(), MoEDrops(model) as tf:
+        full = model(forced)
+    at = lens[:, None] - 1 + torch.arange(new, device=dev)
+    ref = full[torch.arange(b, device=dev)[:, None], at]
+    del full
+    first = moe_routing_prefix(dec, tf, lens, width, new)
+    held = (torch.arange(new)[None, :] < torch.tensor(first)[:, None]).to(dev)
+    diff = (cap_logits - ref).abs().amax(-1)
+    confident = (top2_gap(ref) > tol_logits) & held
+    nl = model.cfg.num_layers
+    return {
+        "capture_equals_generate": bool(torch.equal(cap_toks, toks)),
+        "routing_agrees_until_by_row": first, "held_positions": int(held.sum()),
+        "positions": b * new,
+        "max_abs_logits_held": float(diff[held].max()) if bool(held.any()) else 0.0,
+        "max_abs_logits_all": float(diff.max()),
+        "confident_mismatches": int(((ref.argmax(-1) != cap_toks) & confident).sum()),
+        "confident_tokens": int(confident.sum()),
+        "decode_dropped_share": dec.share(dec.calls[nl:]),
+        "prefill_dropped_share": dec.share(dec.calls[:nl]),
+        "forced_dropped_share": tf.share(),
+        "finite": bool(torch.isfinite(cap_logits).all())}
+
+
+def moe_step_tflop(cfg, b, s) -> float:
+    """TFLOP of one train step (forward and backward, 3x the forward's
+    products) of an MoE Llama as the reference computes it: the expert
+    products run over every capacity slot of every expert."""
+    t, d, f, e = b * s, cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    cap = max(math.ceil(t * cfg.moe_top_k * cfg.moe_capacity_factor / e), cfg.moe_top_k)
+    kv = cfg.num_kv_heads * cfg.head_dim
+    layer = (2 * t * d * (2 * d + 2 * kv) + 2 * b * s * s * d  # projections, causal QK^T and PV
+             + 2 * t * d * e + 3 * 2 * e * cap * d * f)  # router, expert products
+    return 3 * (cfg.num_layers * layer + 2 * t * d * cfg.vocab_size) / 1e12
+
+
+def moe_plain(x, router_w, w_gate, w_up, w_down, top_k, capacity_factor):
+    """One MoE block's function written out plainly, in fp32 on the CPU: x
+    (T, d); the router, the top k by a stable sort (ties to the lower
+    index), renormalized gates, and each (token, choice) in token order
+    kept while its expert has a slot left. Returns (out (T, d), kept (T, k))."""
+    t, e = x.shape[0], w_gate.shape[0]
+    probs = torch.softmax(x @ router_w.t(), dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = srt.values[:, :top_k] / srt.values[:, :top_k].sum(-1, keepdim=True)
+    experts = srt.indices[:, :top_k].tolist()
+    cap = max(math.ceil(t * top_k * capacity_factor / e), top_k)
+    used = [0] * e
+    kept = torch.zeros(t, top_k, dtype=torch.bool)
+    for i in range(t):
+        for j in range(top_k):
+            if used[experts[i][j]] < cap:
+                used[experts[i][j]] += 1
+                kept[i, j] = True
+    out = torch.zeros_like(x)
+    for ex in range(e):
+        sel = [(i, j) for i in range(t) for j in range(top_k)
+               if experts[i][j] == ex and kept[i, j]]
+        if not sel:
+            continue
+        rows = torch.tensor([i for i, _ in sel])
+        g = gates[rows, torch.tensor([j for _, j in sel])]
+        h = torch.nn.functional.silu(x[rows] @ w_gate[ex]) * (x[rows] @ w_up[ex])
+        out.index_add_(0, rows, g[:, None] * (h @ w_down[ex]))
+    return out, kept
+
+
+def moe_block_check(device, c, d, f, cf, seed):
+    """One MoE block (MoEConfig(num_experts, top_k, cf), width d/f) in bf16
+    on ``device`` against :func:`moe_plain` on the CPU in fp32, same
+    weights and same (bf16-valued) input."""
+    from tensorflowonspark_tpu_torch.parallel.moe import MoEConfig, MoEMLP, route
+
+    e, k = c["experts"], c["top_k"]
+    g = torch.Generator().manual_seed(seed)
+    mlp = MoEMLP(MoEConfig(num_experts=e, top_k=k, capacity_factor=cf, hidden_size=d,
+                           intermediate_size=f, dtype=torch.bfloat16), device="cpu")
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    x = torch.randn(c["block_batch"], c["block_seq"], d, generator=g).to(torch.bfloat16)
+    x32 = x.float().reshape(-1, d)
+    ref, kept_ref = moe_plain(x32, mlp.router.weight.detach(), mlp.w_gate.detach(),
+                              mlp.w_up.detach(), mlp.w_down.detach(), k, cf)
+    mlp = mlp.to(device)
+    with torch.no_grad():
+        out, aux = mlp(x.to(device))
+        r = route(mlp.router(x.to(device).reshape(-1, d)), mlp.cfg, x32.shape[0])
+    out = out.float().reshape(-1, d).cpu()
+    scale = float(ref.norm() / math.sqrt(ref.numel()))
+    return {"capacity_factor": cf, "capacity": r.capacity,
+            "kept_equal": bool(torch.equal(r.kept.cpu(), kept_ref)),
+            "dropped_share": float((~kept_ref).float().mean()),
+            "card_dropped": int(aux.dropped.sum()),
+            "max_abs_over_rms": float((out - ref).abs().max()) / scale,
+            "frob": float((out - ref).norm() / ref.norm()), "ref_rms": scale,
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def moe_loss_cpu_check(device, tol):
+    """A tiny MoE Llama's loss through ``llama_loss_fn`` on ``device`` in
+    fp32 against cross entropy plus the layers' aux losses of a forward on
+    the CPU, from the same weights and tokens."""
+    from tensorflowonspark_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        adopt_params,
+        cross_entropy_loss,
+        llama_loss_fn,
+    )
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32, remat=False, attention_impl="xla",
+                           num_experts=8, moe_top_k=2)
+    cpu = Llama(cfg, device="cpu", seed=3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        logits, auxes = cpu(toks[:, :-1], return_aux=True)
+        want = float(cross_entropy_loss(logits, toks[:, 1:])) + sum(float(a.loss) for a in auxes)
+        card = Llama(cfg, device=device, seed=3)
+        own = adopt_params(card, {n: p.detach().to(device) for n, p in cpu.named_parameters()})
+        got = float(llama_loss_fn(card)(own, toks.to(device)))
+    aux = sum(float(a.loss) for a in auxes)
+    return {"card_loss": got, "cpu_loss": want, "aux_sum": aux, "abs_diff": abs(got - want),
+            "ok": abs(got - want) <= tol}
+
+
+def phase_moe(fa, layers=None, rehearse=None, seed=0, parts="abcd", dec_layers=16,
+              eng_layers=SERVING_DEPTH):
+    """MoE experts on the card (see the module docstring, phase 15); raises
+    SystemExit when a check fails. ``layers`` is (a)'s training depth
+    (``MOE["layers"]`` when None), ``dec_layers`` (c)'s decode depth and
+    ``eng_layers`` (d)'s engine depth; ``parts`` picks the parts
+    (chip_faults.py runs "ab"); with ``rehearse={"device": "cpu", "tiny":
+    True, "sizes": {...}}`` it runs at a tiny size on the CPU. Returns every
+    kernel's launches over (a)'s timed steps."""
+    from tensorflowonspark_tpu_torch.compute import TrainState, adamw, build_train_step
+    from tensorflowonspark_tpu_torch.models.llama import (
+        Llama,
+        LlamaConfig,
+        adopt_params,
+        cross_entropy_loss,
+        generate,
+        llama_loss_fn,
+    )
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.serving import ContinuousBatcher
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**MOE, **rehearse.get("sizes", {})}
+    layers = c["layers"] if layers is None else layers
+    moe_kw = dict(num_experts=c["experts"], moe_top_k=c["top_k"])
+    if rehearse.get("tiny"):
+        preset = LlamaConfig.tiny(dtype=torch.bfloat16, **moe_kw)
+    else:
+        preset = LlamaConfig.llama_1b(**moe_kw)
+    tol = {**MOE_TOL, "launches_per_step": layers if cuda else 0}
+    windows = LaunchWindows(fa, bn_kernels, cuda)
+    err, ok, nums, part_s, lap_t, peak = {}, {}, {}, {}, [time.perf_counter()], {}
+    t_phase = lap_t[0]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+        if cuda:
+            peak[name] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+
+    rng = np.random.default_rng(seed + 40)
+    try:
+        if "a" in parts:
+            # (a) the train step on an MoE llama_1b cut to `layers` (fp32
+            # params, bf16 compute), B1-B3 counted over the timed steps
+            with Guarded("a_train", ok, err):
+                cfg = dataclasses.replace(preset, num_layers=layers, remat=False,
+                                          max_seq_len=max(preset.max_seq_len, c["seq"]))
+                model = Llama(cfg, device=device, seed=seed)
+                n_params = sum(p.numel() for p in model.parameters())
+                tx = adamw(c["lr"], moment_dtype=torch.bfloat16)
+                state = TrainState.create(dict(model.named_parameters()), tx)
+                loss_fn = llama_loss_fn(model)
+                step = build_train_step(lambda p, bt: loss_fn(p, bt["tokens"]), tx,
+                                        device=device)
+                batch = {"tokens": torch.randint(
+                    0, cfg.vocab_size, (c["batch"], c["seq"] + 1), device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))}
+                inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+                with torch.no_grad():  # the step-0 loss in parts, one forward
+                    logits0, aux0 = model(inputs, return_aux=True)
+                    parts0 = float(cross_entropy_loss(logits0, targets)) + sum(
+                        float(a.loss) for a in aux0)
+                del logits0
+                state, loss0 = step(state, batch)  # warm-up
+                loss0 = loss0.item()
+                losses = []
+                with windows:
+                    t0 = time.perf_counter()
+                    for _ in range(c["steps"]):
+                        state, loss = step(state, batch)
+                        losses.append(loss)
+                    sync_on(cuda)
+                    step_ms = (time.perf_counter() - t0) * 1e3 / c["steps"]
+                launches = dict(windows.total)
+                losses = [loss0] + [x.item() for x in losses]
+                with torch.no_grad():
+                    _, auxes = model(inputs, return_aux=True)
+                tokens = c["batch"] * c["seq"]
+                tflop = moe_step_tflop(cfg, c["batch"], c["seq"])
+                nums["a_train"] = {
+                    "layers": cfg.num_layers, "n_params": n_params, "losses": losses,
+                    "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                    "step_tflop": tflop, "tflops_per_s": tflop / step_ms * 1e3,
+                    "launches": launches,
+                    "aux_loss_by_layer": [float(a.loss) for a in auxes],
+                    "dropped_share_by_layer": [float(a.dropped.sum()) / a.assigned
+                                               for a in auxes],
+                    "capacity": math.ceil(tokens * c["top_k"] * 2.0 / c["experts"]),
+                    "loss_parts_step0": parts0}
+                if cuda:
+                    nums["a_train"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                ok["a_train"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                                 and all(launches[k] == tol["launches_per_step"] * c["steps"]
+                                         for k in ("fwd", "dq", "dkv")))
+                err["a_loss_parts"] = abs(loss0 - parts0)
+                ok["a_loss_parts"] = err["a_loss_parts"] <= tol["loss_parts"]
+
+                def run_step():
+                    nonlocal state
+                    state, _ = step(state, batch)
+
+                if cuda:
+                    prof = profile_steps(run_step, model="llama_1b_moe")
+                    nums["a_train"]["profile"] = {
+                        k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                             "device_idle_share", "device_ms_by_kind",
+                                             "weight_update_device_ms", "aten_calls_per_step")}
+                del model, state, step, loss_fn, batch, inputs, targets, run_step
+            with Guarded("a_loss_cpu", ok, err):
+                err["a_loss_cpu"] = moe_loss_cpu_check(device, tol["loss_cpu"])
+                ok["a_loss_cpu"] = err["a_loss_cpu"]["ok"]
+            lap("a_train")
+
+        if "b" in parts:
+            # (b) one MoE block at full width, default and low capacity
+            for name, cf in (("b_block", 2.0), ("b_block_low_cf", c["low_cf"])):
+                with Guarded(name, ok, err):
+                    err[name] = moe_block_check(device, c, preset.hidden_size,
+                                                preset.intermediate_size, cf, seed + 7)
+                    e_ = err[name]
+                    ok[name] = (e_["kept_equal"] and e_["finite"]
+                                and e_["max_abs_over_rms"] <= tol["block"]
+                                and (e_["dropped_share"] > 0) == (cf < 1))
+            lap("b_block")
+
+        dec_model = None
+        if "c" in parts:
+            # (c) decode at full depth: greedy at batch 8 against a
+            # teacher-forced forward in fp32 (where the two route alike,
+            # which bf16 noise rarely allows, since one rounding step can
+            # flip a near-tied expert choice) and in bf16; drops in both
+            with Guarded("c_decode", ok, err):
+                b, width, new = c["dec_batch"], c["dec_width"], c["dec_new"]
+                lengths = rng.integers(c["dec_min"], width + 1, b)
+                lengths[0], lengths[-1] = width, c["dec_min"]
+                prompt = torch.zeros(b, width, dtype=torch.long)
+                for i, n in enumerate(lengths):
+                    prompt[i, :n] = torch.from_numpy(rng.integers(0, preset.vocab_size, n))
+                prompt, lens = prompt.to(device), torch.from_numpy(lengths).to(device)
+                res = {}
+                for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    cfg = dataclasses.replace(preset, num_layers=dec_layers, remat=False, dtype=dt)
+                    dec_model = Llama(cfg, device=device, seed=seed).to(dt)
+                    res[name] = moe_decode_check(dec_model, prompt, lens, new,
+                                                 tol[f"logits_{name}"])
+                    if name == "fp32":
+                        del dec_model
+                weight_bytes = sum(p.numel() * p.element_size() for p in dec_model.parameters())
+                err["c_decode"] = {"layers": dec_layers, "lengths": lengths.tolist(), **res}
+                f32 = res["fp32"]
+                ok["c_decode"] = (
+                    all(r["capture_equals_generate"] and r["finite"]
+                        and r["max_abs_logits_held"] <= tol[f"logits_{n}"]
+                        and r["confident_mismatches"] == 0 for n, r in res.items())
+                    and f32["held_positions"] >= tol["fp32_held_share"] * f32["positions"])
+                nl = dec_layers
+                timing = {}
+                for tb in ((1, b) if cuda else ()):
+                    ms = decode_step_ms(dec_model, tb, c["time_prompt"], c["time_steps"],
+                                        cfg.vocab_size, device)
+                    slots = cfg.max_seq_len
+                    kv = 2 * nl * tb * slots * cfg.num_kv_heads * cfg.head_dim * 2
+                    # every expert's bank is read each step (C >= 1 slot an
+                    # expert), the embedding only its B rows
+                    step_w = (weight_bytes - dec_model.embed.numel() * 2
+                              + tb * cfg.hidden_size * 2)
+                    bound = (step_w + kv) / H100_BYTES_PER_S * 1e3
+                    timing[f"b{tb}"] = {"step_ms": ms, "tokens_per_s": tb / ms * 1e3,
+                                        "bytes_per_step": step_w + kv, "bound_ms": bound,
+                                        "share_of_bound": bound / ms}
+                nums["c_decode"] = {"weight_bytes": weight_bytes, "timing": timing}
+            lap("c_decode")
+
+        if "d" in parts:
+            # (d) the continuous engine over the first eng_layers blocks of
+            # (c)'s weights: one request alone, then 8 staggered requests
+            with Guarded("d_engine", ok, err):
+                cfg = dataclasses.replace(preset, num_layers=eng_layers, remat=False)
+                eng_model = Llama(cfg, device=device, seed=seed).to(cfg.dtype)
+                if dec_model is not None:
+                    src = dict(dec_model.named_parameters())
+                    adopt_params(eng_model, {n: src[n] for n, _ in eng_model.named_parameters()})
+                del dec_model
+                eng = ContinuousBatcher(eng_model, slots=c["eng_slots"],
+                                        prompt_widths=c["eng_widths"],
+                                        decode_block=c["eng_block"],
+                                        pipeline_depth=c["eng_depth"])
+                try:
+                    alone = rng.integers(0, cfg.vocab_size, c["alone_len"]).tolist()
+                    p1 = torch.tensor([alone], device=device)
+                    ref_toks, ref_logits = greedy_capture(eng_model, p1, c["eng_new"])
+                    s = eng.stream(tokens=alone, max_new_tokens=c["eng_new"],
+                                   yield_logprobs=True)
+                    list(s)
+                    held = hold_to_reference(s.result, s.logprobs, ref_logits[0],
+                                             ref_toks[0].tolist(), {"logits": tol["gap"]})
+                    err["d_alone"] = {"equal": s.result == ref_toks[0].tolist(), **held}
+                    ok["d_alone"] = held["confident_mismatches"] == 0
+                    reqs = []
+                    for _ in range(c["eng_requests"]):
+                        n = int(rng.integers(c["eng_min"], c["eng_max"] + 1))
+                        reqs.append({"tokens": rng.integers(0, cfg.vocab_size, n).tolist(),
+                                     "max_new_tokens": c["eng_new"]})
+                    with MoEDrops(eng_model) as eng_drops:
+                        got, wall = drive_engine(eng, reqs, c["eng_threads"], c["eng_stagger"])
+                    parted = []
+                    for i, rq in enumerate(reqs):
+                        want = generate(eng_model, torch.tensor([rq["tokens"]], device=device),
+                                        c["eng_new"])[0].tolist()
+                        toks_i = got[i][0]
+                        parted.append(next((j for j in range(len(want))
+                                            if j >= len(toks_i) or toks_i[j] != want[j]),
+                                           len(want)))
+                    err["d_engine"] = {
+                        "layers": eng_layers, "requests": len(reqs), "completed": len(got),
+                        "wall_s": wall, "parted_at_by_request": parted,
+                        "equal_to_generate_alone": sum(p == c["eng_new"] for p in parted),
+                        "dropped_share": eng_drops.share()}
+                    ok["d_engine"] = len(got) == len(reqs) and all(
+                        len(got[i][0]) == c["eng_new"] for i in range(len(reqs)))
+                finally:
+                    eng.close()
+                del eng_model
+            lap("d_engine")
+    finally:
+        if cuda:
+            torch.cuda.empty_cache()
+
+    nums["peak_mem_gb"] = peak or None
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "moe", "part": "numbers", **nums})
+    good = bool(ok) and all(ok.values())
+    emit({"phase": "moe", "case": "moe_checks", "seed": seed, "layers": layers,
+          "hidden": preset.hidden_size, "experts": c["experts"], "parts": parts, "checks": ok,
+          "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("moe phase failed: " + ", ".join(k for k, v in ok.items() if not v))
+    return windows.total
+
+
+SPEC = dict(batch=8, width=512, min_len=64, new=64, k=4, early_layers=2, draft_layers=2,
+            accept_v=8, accept_draws=20000, time_prompt=128, time_new=32, temperature=0.8,
+            server_rows=8)
+# Limits of phase spec. "fp32_gap": in fp32 the speculative tokens equal
+# plain greedy's; where a row parts from it anyway, plain greedy's top-2 gap
+# there must be below this (fp32 rounding of a (B, k+1) verify against (B, 1)
+# steps). "gap": in bf16 the first place a row parts from plain greedy must
+# be one where plain greedy's top-2 gap is below phase serve's confident-token
+# gap. "tv": the rejection rule's first emitted token against the target's p,
+# total-variation distance over accept_draws draws (their sampling error at
+# V=8 is ~0.01).
+SPEC_TOL = dict(fp32_gap=1e-4, gap=SERVE_TOL["logits"], tv=0.02)
+
+
+def spec_parted(toks, plain, plain_logits, gap):
+    """Each row's first position where ``toks`` parts from ``plain`` (the
+    row's length when never), and how many rows part at a position where
+    plain's top-2 gap exceeds ``gap``."""
+    diff = (toks != plain).cpu()
+    gaps = top2_gap(plain_logits).cpu()
+    parted, confident = [], 0
+    for r in range(toks.shape[0]):
+        at = diff[r].nonzero()
+        p = int(at[0]) if len(at) else toks.shape[1]
+        parted.append(p)
+        confident += int(p < toks.shape[1] and bool(gaps[r, p] > gap))
+    return parted, confident
+
+
+def early_exit_draft(target, layers):
+    """A LayerSkip-style draft: ``target``'s embedding, first ``layers``
+    blocks, final norm and head, the same tensors (nothing copied)."""
+    from tensorflowonspark_tpu_torch.models.llama import Llama, adopt_params
+
+    cfg = dataclasses.replace(target.cfg, num_layers=layers)
+    draft = Llama(cfg, device=target.device)
+    own = dict(target.named_parameters())
+    adopt_params(draft, {n: own[n] for n, _ in draft.named_parameters()})
+    return draft
+
+
+def phase_spec(fa, layers=16, rehearse=None, seed=0, parts="abc"):
+    """Speculative decoding on the card (see the module docstring, phase
+    16); raises SystemExit when a check fails. ``layers`` cuts the target's
+    depth, ``parts`` picks the parts (chip_faults.py runs "a"); with
+    ``rehearse={"device": "cpu", "tiny": True, "sizes": {...}}`` it runs at a
+    tiny size on the CPU. Returns every kernel's launches on the phase's main
+    path (none: decode runs no kernel of the port)."""
+    from tensorflowonspark_tpu_torch.compute.checkpoint import save_checkpoint
+    from tensorflowonspark_tpu_torch.models.llama import Llama, LlamaConfig, generate
+    from tensorflowonspark_tpu_torch.models.speculative import (
+        speculative_accept,
+        speculative_generate,
+    )
+    from tensorflowonspark_tpu_torch.ops import bn_kernels
+    from tensorflowonspark_tpu_torch.tools import generate_text, serve_model
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    c = {**SPEC, **rehearse.get("sizes", {})}
+    if rehearse.get("tiny"):
+        preset, model_flag = LlamaConfig.tiny(), "tiny"
+    else:
+        preset, model_flag = LlamaConfig.llama_1b(), "1b"
+    tol = dict(SPEC_TOL)
+    windows = LaunchWindows(fa, bn_kernels, cuda)
+    err, ok, nums, part_s, lap_t = {}, {}, {}, {}, [time.perf_counter()]
+    t_phase = lap_t[0]
+    k, b, width, new = c["k"], c["batch"], c["width"], c["new"]
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+
+    rng = np.random.default_rng(seed + 50)
+    lengths = rng.integers(c["min_len"], width + 1, b)
+    lengths[0], lengths[-1] = width, c["min_len"]
+    prompts = [rng.integers(0, preset.vocab_size, n).tolist() for n in lengths]
+    prompt = torch.zeros(b, width, dtype=torch.long)
+    for i, row in enumerate(prompts):
+        prompt[i, :len(row)] = torch.tensor(row)
+    prompt, lens = prompt.to(device), torch.from_numpy(lengths).to(device)
+    tmp = tempfile.mkdtemp(prefix="tfos_spec_")
+    models = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "fp32" if dtype == torch.float32 else "bf16"
+            cfg = dataclasses.replace(preset, num_layers=layers, remat=False, dtype=dtype)
+            target = Llama(cfg, device=device, seed=seed).to(dtype)
+            rand_cfg = dataclasses.replace(preset, num_layers=c["draft_layers"], remat=False,
+                                           dtype=dtype)
+            drafts = {"self": target, "early_exit": early_exit_draft(target, c["early_layers"]),
+                      "random_2": Llama(rand_cfg, device=device, seed=seed + 1).to(dtype)}
+            models[name] = (target, drafts)
+        if "a" in parts:
+            # (a) greedy, k drafts a verify, at batch 8 against plain greedy
+            for name, (target, drafts) in models.items():
+                with Guarded(f"a_greedy_{name}", ok, err), windows:
+                    plain, plain_logits = greedy_capture(target, prompt, new, lens)
+                    res = {}
+                    for dname, draft in drafts.items():
+                        st = {}
+                        toks = speculative_generate(target, draft, prompt, new, k=k,
+                                                    prompt_lengths=lens, stats=st)
+                        parted, confident = spec_parted(
+                            toks, plain, plain_logits,
+                            tol["fp32_gap"] if name == "fp32" else tol["gap"])
+                        res[dname] = {
+                            "identical": bool(torch.equal(toks, plain)), "parted_at": parted,
+                            "confident_partings": confident,
+                            "accepted_per_verify": st["accepted"] / max(st["row_verifies"], 1),
+                            "verifies": st["iterations"], "host_reads": st["host_reads"]}
+                    err[f"a_greedy_{name}"] = res
+                    ok[f"a_greedy_{name}"] = (
+                        all(r["confident_partings"] == 0 for r in res.values())
+                        and (name != "fp32" or res["self"]["accepted_per_verify"] == k))
+                lap(f"a_greedy_{name}")
+            # tokens/s at batch 1 and 8, bf16, each draft against plain generate
+            target, drafts = models["bf16"]
+            timing = {}
+            for tb in ((1, b) if cuda else (b,)):
+                p = torch.from_numpy(rng.integers(0, preset.vocab_size,
+                                                  (tb, c["time_prompt"]))).to(device)
+                row = {}
+                tn = c["time_new"]
+                generate(target, p, 4)  # warm-up
+                sync_on(cuda)
+                t0 = time.perf_counter()
+                generate(target, p, tn)
+                sync_on(cuda)
+                row["plain"] = {"tokens_per_s": tb * tn / (time.perf_counter() - t0)}
+                for dname, draft in drafts.items():
+                    st = {}
+                    sync_on(cuda)
+                    t0 = time.perf_counter()
+                    speculative_generate(target, draft, p, tn, k=k, stats=st)
+                    sync_on(cuda)
+                    row[dname] = {"tokens_per_s": tb * tn / (time.perf_counter() - t0),
+                                  "accepted_per_verify": st["accepted"] / max(
+                                      st["row_verifies"], 1),
+                                  "host_reads": st["host_reads"]}
+                timing[f"b{tb}"] = row
+            nums["a_timing"] = timing
+            lap("a_timing")
+
+        if "b" in parts:
+            # (b) the rejection rule on the card at V=8, then one sampled
+            # decode through the early-exit draft
+            with Guarded("b_accept", ok, err):
+                v, n = c["accept_v"], c["accept_draws"]
+                g = torch.Generator(device=device).manual_seed(seed + 9)
+                pr = np.random.default_rng(seed + 9)
+                p = torch.tensor(pr.dirichlet(np.ones(v), size=k + 1), dtype=torch.float32,
+                                 device=device)
+                q = torch.tensor(pr.dirichlet(np.ones(v), size=k), dtype=torch.float32,
+                                 device=device)
+                drafts_q = torch.stack([torch.multinomial(q[j], n, replacement=True,
+                                                          generator=g) for j in range(k)], 1)
+                first_tok, accepted = speculative_accept(g, p[None].expand(n, k + 1, v),
+                                                         q[None].expand(n, k, v), drafts_q)
+                freq = torch.bincount(first_tok[:, 0], minlength=v).double().cpu() / n
+                tv = float(0.5 * (freq - p[0].double().cpu()).abs().sum())
+                err["b_accept"] = {"tv": tv, "accepted_mean": float(accepted.float().mean())}
+                ok["b_accept"] = tv <= tol["tv"]
+            with Guarded("b_sampled", ok, err):
+                target, drafts = models["bf16"]
+                st = {}
+                toks = speculative_generate(
+                    target, drafts["early_exit"], prompt, new, k=k, prompt_lengths=lens,
+                    temperature=c["temperature"],
+                    generator=torch.Generator(device=device).manual_seed(seed + 11), stats=st)
+                err["b_sampled"] = {"accepted_per_verify": st["accepted"] / max(
+                    st["row_verifies"], 1), "verifies": st["iterations"]}
+                ok["b_sampled"] = (tuple(toks.shape) == (b, new) and int(toks.min()) >= 0
+                                   and int(toks.max()) < preset.vocab_size)
+            lap("b_sampled")
+
+        if "c" in parts:
+            # (c) serve_model's fixed path with the random-2 draft saved, against
+            # the CLI's generate_text on the same prompts
+            with Guarded("c_server", ok, err):
+                target, drafts = models["bf16"]
+                models.pop("fp32", None)
+                own = {n: t.detach() for n, t in target.named_parameters()}
+                tdir = save_checkpoint(os.path.join(tmp, "target"), {"params": own})
+                dparams = {n: t.detach() for n, t in drafts["random_2"].named_parameters()}
+                ddir = save_checkpoint(os.path.join(tmp, "draft"), {"params": dparams})
+                over = cli_overrides(target.cfg, preset)
+                dover = json.dumps({"num_layers": c["draft_layers"]})
+                rows = prompts[:c["server_rows"]]
+                dev = None if cuda else "cpu"
+                gen = dict(checkpoint=tdir, model=model_flag, config_overrides=over,
+                           device=dev, width=width, batch_size=len(rows), max_new_tokens=new,
+                           engine="fixed", draft_checkpoint=ddir, draft_model=model_flag,
+                           draft_config_overrides=dover, spec_k=k)
+                server = serve_model.make_server(None, port=0, gen=gen)
+                th = threading.Thread(target=server.serve_forever, daemon=True)
+                th.start()
+                try:
+                    url = f"http://127.0.0.1:{server.server_address[1]}"
+                    code, text = http(url, "/generate", {"prompts": rows})
+                finally:
+                    server.shutdown()
+                    server.server_close()
+                    th.join(timeout=60)
+                pfile, ofile = os.path.join(tmp, "p.jsonl"), os.path.join(tmp, "o.jsonl")
+                with open(pfile, "w") as f:
+                    f.writelines(json.dumps({"tokens": r}) + "\n" for r in rows)
+                argv = ["--checkpoint", tdir, "--model", model_flag, "--config-overrides", over,
+                        "--prompts", pfile, "--output", ofile, "--max-new-tokens", str(new),
+                        "--batch-size", str(len(rows)), "--draft-checkpoint", ddir,
+                        "--draft-model", model_flag, "--draft-config-overrides", dover,
+                        "--spec-k", str(k)] + ([] if cuda else ["--device", "cpu"])
+                rc = generate_text.main(argv)
+                with open(ofile) as f:
+                    cli = [json.loads(line)["tokens"] for line in f]
+                got = json.loads(text)["completions"] if code == 200 else None
+                try:
+                    serve_model.main(["--llama-checkpoint", tdir, "--model", model_flag,
+                                      "--config-overrides", over, "--gen-engine", "continuous",
+                                      "--draft-checkpoint", ddir, "--port", "0"]
+                                     + ([] if cuda else ["--device", "cpu"]))
+                    refused = None
+                except ValueError as e:
+                    refused = str(e)
+                err["c_server"] = {"generate": code, "cli_rc": rc, "equal_to_cli": got == cli,
+                                   "continuous_refused": refused}
+                ok["c_server"] = (code == 200 and rc == 0 and got == cli and refused is not None
+                                  and "does not compose with --draft-checkpoint" in refused)
+            lap("c_server")
+    finally:
+        models.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["launches"] = windows.total
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "spec", "part": "numbers", **nums})
+    good = bool(ok) and all(ok.values())
+    emit({"phase": "spec", "case": "spec_checks", "seed": seed, "layers": layers, "k": k,
+          "parts": parts, "checks": ok, "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("spec phase failed: " + ", ".join(k_ for k_, v in ok.items() if not v))
+    return windows.total
+
+
 def decode_seeds(fa, seeds: list[int]) -> int:
     """Phase decode alone at each of ``seeds`` (weights and data), to read
     the spread of its checks against ``DECODE_TOL``: every seed's check
@@ -5541,52 +6346,58 @@ def main(argv: list[str]) -> int:
     from tensorflowonspark_tpu_torch.ops import bn_kernels as bn
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 
-    phase_device(_build)
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):
+        """``fn(*args, **kw)``, its seconds kept under ``name``, the card's
+        cache emptied after it."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    timed("device", phase_device, _build)
     if argv[:1] == ["--decode-seeds"]:
         return decode_seeds(fa, [int(x) for x in argv[1:]])
-    rows = phase_kernels(fa)
-    launches, train_step_ms, train = phase_train(fa)
-    torch.cuda.empty_cache()
-    bn_rows = phase_bn_kernels(bn)
-    phase_bn_layer()
-    bn_launches, conv_losses = phase_conv_train(bn)
-    phase_cluster(train_step_ms)
-    t0 = time.perf_counter()
-    mesh_flash, mesh_bn = phase_mesh(fa, bn, ref={
+    rows = timed("kernels", phase_kernels, fa)
+    launches, train_step_ms, train = timed("train", phase_train, fa)
+    bn_rows = timed("bn_kernels", phase_bn_kernels, bn)
+    timed("bn_layer", phase_bn_layer)
+    bn_launches, conv_losses = timed("conv_train", phase_conv_train, bn)
+    timed("cluster", phase_cluster, train_step_ms)
+    # the node of phase mesh, phase elastic, the serving phases and parts
+    # (c)-(e) of phase lora run at SERVING_DEPTH, which keeps the whole
+    # script under its limit with the full-depth parts (PERF.md, Findings)
+    mesh_flash, mesh_bn = timed("mesh", phase_mesh, fa, bn, ref={
         "train_losses": train["losses"], "train_step_ms": train_step_ms,
-        "train_profile": train["profile"], "conv_losses": conv_losses})
-    emit({"phase": "mesh", "wall_s": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    elastic_flash, elastic_bn = phase_elastic()
-    emit({"phase": "elastic", "wall_s": time.perf_counter() - t0})
-    torch.cuda.empty_cache()
-    score = phase_decode(fa)
-    torch.cuda.empty_cache()
-    # phases serve, fleet and rollout at half depth keep the whole script
-    # under its limit with phase lora at full depth (PERF.md, Findings)
-    serve = phase_serve(fa, layers=SERVING_DEPTH)
-    torch.cuda.empty_cache()
-    fleet = phase_fleet(fa, layers=SERVING_DEPTH)
-    torch.cuda.empty_cache()
-    rollout = phase_rollout(fa, layers=SERVING_DEPTH)
-    torch.cuda.empty_cache()
-    lora = phase_lora(fa, train_step_ms=train_step_ms)
-    emit({"phase": "script", "wall_s": time.perf_counter() - t_script})
+        "train_profile": train["profile"], "conv_losses": conv_losses},
+        node_layers=SERVING_DEPTH)
+    emit({"phase": "mesh", "wall_s": phase_s["mesh"]})
+    elastic_flash, elastic_bn = timed("elastic", phase_elastic, layers=SERVING_DEPTH)
+    emit({"phase": "elastic", "wall_s": phase_s["elastic"]})
+    score = timed("decode", phase_decode, fa)
+    serve = timed("serve", phase_serve, fa, layers=SERVING_DEPTH)
+    fleet = timed("fleet", phase_fleet, fa, layers=SERVING_DEPTH)
+    rollout = timed("rollout", phase_rollout, fa, layers=SERVING_DEPTH)
+    moe = timed("moe", phase_moe, fa)
+    lora = timed("lora", phase_lora, fa, train_step_ms=train_step_ms,
+                 serve_layers=SERVING_DEPTH)
+    spec = timed("spec", phase_spec, fa)
+    emit({"phase": "script", "wall_s": time.perf_counter() - t_script, "phase_s": phase_s})
+    counts = {"mesh": (mesh_flash, mesh_bn), "elastic": (elastic_flash, elastic_bn),
+              "score": (score, score), "serve": (serve, serve), "fleet": (fleet, fleet),
+              "rollout": (rollout, rollout), "moe": (moe, moe), "lora": (lora, lora),
+              "spec": (spec, spec)}
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],
-         "mesh_launches": mesh_flash[kind], "elastic_launches": elastic_flash[kind],
-         "score_launches": score[kind], "serve_launches": serve[kind],
-         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind],
-         "lora_launches": lora[kind], **rows[kind]}
+         **{f"{p}_launches": flash[kind] for p, (flash, _) in counts.items()}, **rows[kind]}
         for kind in ("fwd", "dq", "dkv")
     ] + [
         {"name": f"bn_{kind}_stats", "route": "cuda", "source": BN_SOURCE,
          "replaces": REPLACES[kind], "launches": bn_launches[kind],
-         "mesh_launches": mesh_bn[kind], "elastic_launches": elastic_bn[kind],
-         "score_launches": score[kind], "serve_launches": serve[kind],
-         "fleet_launches": fleet[kind], "rollout_launches": rollout[kind],
-         "lora_launches": lora[kind], **bn_rows[kind]}
+         **{f"{p}_launches": bnl[kind] for p, (_, bnl) in counts.items()}, **bn_rows[kind]}
         for kind in ("pair", "cross")
     ]})
     print(nvidia_smi(), flush=True)

@@ -38,11 +38,14 @@ What is ported:
   base through ``lora_optimizer``, merged, or served as a bank per
   request and rolled adapters-only) and ``ops.quant`` (int8 weight-only
   decode), consumed by ``models.llama``, the engine, the server, the
-  decode CLI and the example.
+  decode CLI and the example;
+- speculative decoding (``models.speculative``, through ``generate_text``
+  and ``serve_model``'s fixed path) and MoE experts (``parallel.moe``, a
+  routed-expert Llama that trains, decodes and serves).
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item: speculative decoding, MoE experts and sequence or pipeline parallel
-(A10), and decode on a device mesh (A9b). Importing the package imports
+item: sequence, pipeline and expert parallel (A10's parallel remainder),
+and decode on a device mesh (A9b). Importing the package imports
 nothing heavy and builds no kernel.
 """
 

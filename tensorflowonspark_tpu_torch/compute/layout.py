@@ -21,8 +21,7 @@ kernels. :func:`param_shardings` takes a ``view`` that maps each port
 parameter to its JAX leaf (``models.convert.jax_leaf``) and permutes the
 spec back onto the port's dims, so the tables stay the only source.
 
-The decode and serve cache specs wait for ROADMAP A9b, ``expert_bank_spec``
-for A10.
+The decode and serve cache specs wait for ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -512,6 +511,13 @@ def batch_sharding(mesh, ndim: int = 1) -> Sharding:
 
 def replicated(mesh) -> Sharding:
     return sharding(mesh, ())
+
+
+def expert_bank_spec(param_name: str) -> tuple:
+    """The spec of one 3-dim MoE expert bank leaf (a flax path), from the
+    'moe' table: the one source, which the 'llama' table's ndim-3 rules
+    repeat so that model-level and module-level specs cannot diverge."""
+    return get_layout("moe").spec(param_name, (0, 0, 0))
 
 
 def fsdp_leaf_spec(shape: tuple, n_shard: int, axis: str = "fsdp",

@@ -15,7 +15,11 @@ back. Two families:
 
 Dense kernels are stored ``(in, out)`` in flax and ``(out, in)`` in the
 port, so they are transposed, as is Llama's ``(hidden, vocab)`` output
-head; conv kernels go HWIO ↔ OIHW. Any leaf that maps to nothing raises.
+head (and an MoE layer's router, ``mlp/router/kernel`` ``(d, E)`` ↔
+``mlp.router.weight`` ``(E, d)``); conv kernels go HWIO ↔ OIHW. An MoE
+layer's expert banks keep their axes: ``mlp/w_gate`` and ``mlp/w_up``
+``(E, d, f)``, ``mlp/w_down`` ``(E, f, d)`` ↔ ``mlp.w_gate`` … Any leaf
+that maps to nothing raises.
 
 Int8 and LoRA leaves (``ops.quant``, ``ops.lora``) move both ways. From
 the JAX package: a ``QuantTensor`` (or its checkpoint form ``{"q",
@@ -54,8 +58,10 @@ _BATCH_NORM = re.compile(r"BatchNorm_\d+$")
 _NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]*$")
 _DENSE = {
     "attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-    "mlp": ("gate_proj", "up_proj", "down_proj"),
+    "mlp": ("gate_proj", "up_proj", "down_proj", "router"),
 }
+# an MoE layer's expert banks, (E, d, f) / (E, f, d) on both sides
+_BANKS = ("w_gate", "w_up", "w_down")
 
 
 _QUANT_KEYS, _LORA_KEYS = {"q", "scale"}, {"base", "a", "b"}
@@ -146,6 +152,8 @@ def _port_name(path: tuple[str, ...]) -> tuple[str, bool]:
         i, rest = m.group(1), path[1:]
         if len(rest) == 2 and rest[0] in ("attn_norm", "mlp_norm") and rest[1] == "scale":
             return f"layers.{i}.{rest[0]}.scale", False
+        if len(rest) == 2 and rest[0] == "mlp" and rest[1] in _BANKS:
+            return f"layers.{i}.mlp.{rest[1]}", False
         if len(rest) == 3 and rest[1] in _DENSE.get(rest[0], ()):
             if rest[2] == "kernel":
                 return f"layers.{i}.{rest[0]}.{rest[1]}.weight", True
@@ -271,6 +279,8 @@ def _jax_path(name: str) -> tuple[list[str], bool]:
         layer = f"layer{parts[1]}"
         if parts[2] in ("attn_norm", "mlp_norm") and parts[3:] == ["scale"]:
             return [layer, parts[2], "scale"], False
+        if parts[2] == "mlp" and len(parts) == 4 and parts[3] in _BANKS:
+            return [layer, "mlp", parts[3]], False
         if len(parts) == 5 and parts[3] in _DENSE.get(parts[2], ()):
             leaf = {"weight": "kernel", "bias": "bias"}.get(parts[4])
             if leaf is not None:

@@ -50,8 +50,12 @@ through ``ops.quant.quantized_dot``. ``forward``, :func:`prefill`,
 :func:`decode_step` and :func:`generate` take ``adapter_ids`` (B,), each
 row's bank slot; None routes every row to slot 0, the bank's zero adapter.
 
+With ``num_experts > 0`` every block's MLP is a routed expert bank
+(:class:`parallel.moe.MoEMLP`); its load-balancing loss comes out of the
+forward with ``return_aux=True`` and :func:`llama_loss_fn` adds it.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): decode on a device mesh (A9b) and MoE experts (A10).
+item): decode on a device mesh (A9b) and MoE experts on a mesh (A10).
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from tensorflowonspark_tpu_torch.ops import lora as _lora
 from tensorflowonspark_tpu_torch.ops import quant as _quant
 from tensorflowonspark_tpu_torch.ops.attention import dot_product_attention
 from tensorflowonspark_tpu_torch.parallel.context import gather_fsdp, is_dtensor, mesh_region
+from tensorflowonspark_tpu_torch.parallel.moe import MoEConfig, MoEMLP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +111,11 @@ class LlamaConfig:
     # 'full' (or 'none'): recompute the whole block in backward; 'dots':
     # keep the outputs of the plain matrix products, recompute the rest
     remat_policy: str = "full"
-    # MoE experts are not ported yet (ROADMAP A10): only 0 is accepted
+    # MoE: when num_experts > 0 every block's MLP is a routed expert bank
+    # (parallel/moe.py)
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
     # Qwen2-family QKV bias
     attention_bias: bool = False
     # sliding-window attention: each query sees the last `sliding_window` keys
@@ -519,17 +527,31 @@ class MLP(nn.Module):
         )
 
 
+def moe_config(cfg: LlamaConfig) -> MoEConfig:
+    """The :class:`parallel.moe.MoEConfig` of ``cfg``'s expert banks."""
+    return MoEConfig(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor, hidden_size=cfg.hidden_size,
+                     intermediate_size=cfg.intermediate_size, dtype=cfg.dtype)
+
+
 class Block(nn.Module):
+    """One decoder layer: ``(x, aux)``, where ``aux`` is the MoE layer's
+    :class:`parallel.moe.MoEAux` (None for a dense MLP). It is an output,
+    not a side effect, so a remat recompute in backward adds nothing."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MoEMLP(moe_config(cfg), device) if cfg.num_experts > 0 else MLP(cfg, device)
 
     def forward(self, x, positions, segment_ids=None, cache=None, padded=False, adapter_ids=None):
         h = x + self.attn(self.attn_norm(x), positions, segment_ids, cache, padded, adapter_ids)
-        return h + self.mlp(self.mlp_norm(h), adapter_ids)
+        if isinstance(self.mlp, MoEMLP):
+            y, aux = self.mlp(self.mlp_norm(h))  # MoE routes by token, not adapter
+            return h + y, aux
+        return h + self.mlp(self.mlp_norm(h), adapter_ids), None
 
 
 # the plain matrix products, whose outputs remat_policy='dots' keeps
@@ -586,8 +608,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE experts (num_experts > 0) are not ported yet: ROADMAP A10")
         if cfg.remat and cfg.remat_policy not in ("full", "dots", "none"):
             raise ValueError(
                 f"unknown remat_policy {cfg.remat_policy!r}; expected 'full', 'dots', or 'none'"
@@ -605,7 +625,8 @@ class Llama(nn.Module):
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if name.endswith("weight") or name in ("embed", "lm_head"):
+                if name.endswith(("weight", ".w_gate", ".w_up", ".w_down")) or name in (
+                        "embed", "lm_head"):
                     p.normal_(0.0, 0.02, generator=gen)
 
     @property
@@ -613,11 +634,16 @@ class Llama(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, positions=None, segment_ids=None, decode=False, return_hidden=False,
-                padded=False, cache=None, adapter_ids=None):
+                padded=False, cache=None, adapter_ids=None, return_aux=False):
         """``return_hidden=True`` returns ``(hidden, lm_head)`` — the final
         normed hidden states (B, S, H) and the head weight (vocab, H; a
         ``QuantTensor`` when it is int8) — so a loss can project the
         vocabulary in chunks.
+
+        ``return_aux=True`` returns ``(out, auxes)``: ``out`` as above and
+        the list of the MoE layers' :class:`parallel.moe.MoEAux` in layer
+        order (empty for a dense model), whose ``loss`` terms
+        :func:`llama_loss_fn` adds (the reference's sown ``losses``).
 
         ``adapter_ids`` (B,) routes each row through its slot of every
         LoRA bank in the weights; None routes every row to slot 0, the
@@ -640,8 +666,9 @@ class Llama(nn.Module):
                     "KV-cache decode on a device mesh is not ported yet: ROADMAP A9b"
                 )
         with mesh_region(tokens):
-            return self._forward(tokens, positions, segment_ids, return_hidden,
-                                 cache if decode else None, padded, adapter_ids)
+            out, auxes = self._forward(tokens, positions, segment_ids, return_hidden,
+                                       cache if decode else None, padded, adapter_ids)
+        return (out, auxes) if return_aux else out
 
     def _forward(self, tokens, positions, segment_ids, return_hidden, cache, padded, adapter_ids):
         cfg = self.cfg
@@ -658,25 +685,28 @@ class Llama(nn.Module):
         else:
             x = F.embedding(tokens, embed).to(cfg.dtype)
         context_fn = _dots_saved if cfg.remat_policy == "dots" else None
+        auxes = []
         for i, block in enumerate(self.layers):
             if cache is not None:  # decode stays out of remat
-                x = block(x, positions, segment_ids, cache[i], padded, adapter_ids)
+                x, aux = block(x, positions, segment_ids, cache[i], padded, adapter_ids)
             elif cfg.remat and torch.is_grad_enabled():
                 kw = {} if context_fn is None else {"context_fn": context_fn}
-                x = checkpoint(block, x, positions, segment_ids, None, False, adapter_ids,
-                               use_reentrant=False, **kw)
+                x, aux = checkpoint(block, x, positions, segment_ids, None, False, adapter_ids,
+                                    use_reentrant=False, **kw)
             else:
-                x = block(x, positions, segment_ids, adapter_ids=adapter_ids)
+                x, aux = block(x, positions, segment_ids, adapter_ids=adapter_ids)
+            if aux is not None:
+                auxes.append(aux)
         x = self.final_norm(x)
         head = gather_fsdp(self.lm_head)
         if self.lm_head_scale is not None:
             head = _quant.QuantTensor(head, self.lm_head_scale, axis=0)
             if return_hidden:
-                return x, head
-            return _quant.quantized_dot(x, head).float()
+                return (x, head), auxes
+            return _quant.quantized_dot(x, head).float(), auxes
         if return_hidden:
-            return x, head
-        return F.linear(x, head.to(cfg.dtype)).float()
+            return (x, head), auxes
+        return F.linear(x, head.to(cfg.dtype)).float(), auxes
 
 
 def _slots(model: nn.Module) -> dict:
@@ -959,7 +989,10 @@ def _chunk_nll_sum(hc, head16, tc, mk):
 
 
 def llama_loss_fn(model: Llama, logit_chunk: int | None = None):
-    """Next-token loss ``(params, tokens (B, S+1), segment_ids=None) -> scalar``.
+    """Next-token loss ``(params, tokens (B, S+1), segment_ids=None) -> scalar``,
+    plus the MoE layers' load-balancing losses (``parallel.moe``; none for a
+    dense model): MoE configs must train through this loss, as in the
+    reference, whose loss collects the sown ``losses``.
 
     ``params`` maps the model's parameter names to tensors (a
     ``TrainState.params``); the model runs with them in place of its own
@@ -985,11 +1018,12 @@ def llama_loss_fn(model: Llama, logit_chunk: int | None = None):
             mask, segment_ids = packed_loss_mask(segment_ids)
         seg_in = None if segment_ids is None else segment_ids[:, :-1]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        kw = {"segment_ids": seg_in, "return_aux": True}
         if logit_chunk is None:
-            logits = torch.func.functional_call(model, params, (inputs,), {"segment_ids": seg_in})
-            return cross_entropy_loss(logits, targets, mask)
-        hidden, head = torch.func.functional_call(
-            model, params, (inputs,), {"segment_ids": seg_in, "return_hidden": True}
+            logits, auxes = torch.func.functional_call(model, params, (inputs,), kw)
+            return _with_aux(cross_entropy_loss(logits, targets, mask), auxes)
+        (hidden, head), auxes = torch.func.functional_call(
+            model, params, (inputs,), {**kw, "return_hidden": True}
         )
         b, s, _ = hidden.shape
         if s % logit_chunk:
@@ -1003,6 +1037,12 @@ def llama_loss_fn(model: Llama, logit_chunk: int | None = None):
                 _chunk_nll_sum, hidden[:, sl], head16, targets[:, sl], mc[:, sl],
                 use_reentrant=False,
             )
-        return total / mc.sum().clamp_min(1)
+        return _with_aux(total / mc.sum().clamp_min(1), auxes)
 
+    return loss
+
+
+def _with_aux(loss, auxes):
+    for aux in auxes:
+        loss = loss + aux.loss
     return loss

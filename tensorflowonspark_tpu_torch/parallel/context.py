@@ -79,7 +79,7 @@ def dispatch_mesh(tensors, batch_extent: int, forbidden_axes=()):
     if wide:
         raise NotImplementedError(
             f"sharded {wide} axes (sequence, pipeline or expert parallel) are not "
-            "ported yet: ROADMAP A10"
+            "ported yet: ROADMAP A10, the next slice (its parallel remainder)"
         )
     dp = sizes.get("data", 1) * sizes.get("fsdp", 1)
     if batch_extent % dp:

@@ -70,8 +70,11 @@ resident bases (by reference: nothing else moves). An int8 weight set
 swaps.
 
 Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-``mesh=`` (TP decode on 'model', A9b). MoE weights (A10) cannot reach a
-port model. The int8 and rolling KV caches are ported.
+``mesh=`` (TP decode on 'model', A9b). The int8 and rolling KV caches are
+ported, and an MoE model serves as the reference's does: each decode step
+routes every slot's token, dead and padded slots included, so under
+capacity pressure they can take an expert slot ahead of a live row (the
+priority is slot order).
 """
 
 from __future__ import annotations

@@ -19,17 +19,25 @@ through ``rewrap_lora``, and a set that stores none (converted from the
 JAX package, whose checkpoints keep no scale) gets 1.0, ``add_lora``'s
 default alpha = rank. A bank decodes as its slot 0.
 
+``--draft-checkpoint`` decodes speculatively (``models.speculative``): a
+draft model (``--draft-model``, ``--draft-config-overrides``; loaded like
+the target) proposes ``--spec-k`` tokens per verify forward of the target.
+Greedy output is token for token the plain greedy decode; at a temperature
+the rejection rule keeps the target's sampling distribution, so top-k,
+top-p and min-p do not combine with a draft, nor does ``--score``.
+
 Usage::
 
     python -m tensorflowonspark_tpu_torch.tools.generate_text \\
         --checkpoint ckpt_dir/ --model 1b --prompts prompts.jsonl \\
         --output out.jsonl [--max-new-tokens 64] [--eos-id N] \\
         [--temperature 0.8 --top-k 40 --top-p 0.95] [--batch-size 8] \\
-        [--config-overrides '{"num_layers": 4}'] [--device cpu] [--score]
+        [--config-overrides '{"num_layers": 4}'] [--device cpu] [--score] \\
+        [--draft-checkpoint draft_dir/ --draft-model 1b \\
+         --draft-config-overrides '{"num_layers": 2}' --spec-k 4]
 
-Not ported yet, each raising ``NotImplementedError``: ``--mesh`` (decode on
-a device mesh, ROADMAP A9b), ``--draft-checkpoint``, the ``--draft-*``
-flags and ``--spec-k`` (speculative decoding, A10).
+Not ported yet, raising ``NotImplementedError``: ``--mesh`` (decode on a
+device mesh, ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -79,27 +87,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None,
                    help="decode sharded over a device mesh (not ported: ROADMAP A9b)")
     p.add_argument("--draft-checkpoint", default=None,
-                   help="speculative decoding with a draft model (not ported: ROADMAP A10)")
-    p.add_argument("--draft-model", choices=("tiny", "1b", "7b"), default=None,
-                   help="the draft model's config (not ported: ROADMAP A10)")
+                   help="speculative decoding: a checkpoint of a (smaller) draft model that "
+                   "proposes --spec-k tokens per verify forward of the target; greedy output "
+                   "equals the plain greedy decode, a temperature keeps the target's sampling "
+                   "distribution (the rejection rule). No --top-k/--top-p/--min-p")
+    p.add_argument("--draft-model", choices=("tiny", "1b", "7b"), default="tiny")
     p.add_argument("--draft-config-overrides", default=None,
-                   help="the draft model's overrides (not ported: ROADMAP A10)")
-    p.add_argument("--spec-k", type=int, default=None,
-                   help="draft tokens per verify step (not ported: ROADMAP A10)")
+                   help="JSON LlamaConfig overrides of the draft model")
+    p.add_argument("--spec-k", type=int, default=4)
     return p
 
 
 def _refuse_unported(args) -> None:
-    refused = [
-        (args.mesh, "--mesh (decode on a device mesh)", "A9b"),
-        (args.draft_checkpoint, "--draft-checkpoint (speculative decoding)", "A10"),
-        (args.draft_model, "--draft-model (speculative decoding)", "A10"),
-        (args.draft_config_overrides, "--draft-config-overrides (speculative decoding)", "A10"),
-        (args.spec_k is not None, "--spec-k (speculative decoding)", "A10"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+    if args.mesh:
+        raise NotImplementedError("--mesh (decode on a device mesh) is not ported yet: "
+                                  "ROADMAP A9b")
 
 
 def _load_config(args):
@@ -195,7 +197,8 @@ def decode_batches(model, prompts: list[list[int]], *, batch_size: int, width: i
                    max_new_tokens: int, generator=None, temperature: float = 0.0,
                    top_k: int | None = None, top_p: float | None = None,
                    min_p: float | None = None, eos_id: int | None = None,
-                   uniform: bool = False, mesh=None, pad_to_batch: bool = False):
+                   uniform: bool = False, mesh=None, pad_to_batch: bool = False,
+                   draft=None, spec_k: int = 4):
     """Decode ``prompts`` at one (batch_size, width) shape: short chunks pad
     rows by repeating the last prompt (results trimmed), short prompts
     right-pad to ``width`` (``generate``'s prompt_lengths path;
@@ -205,16 +208,29 @@ def decode_batches(model, prompts: list[list[int]], *, batch_size: int, width: i
     completion then does not depend on how many prompts came with it).
     Returns ``(completions, generator)``, each completion trimmed at its
     first ``eos_id``; the generator (advanced) continues the stream.
+
+    ``draft``: a draft ``Llama`` on the target's device makes the decode
+    speculative (``models.speculative``), ``spec_k`` proposals per verify
+    forward: greedy output equals the plain greedy decode token for token,
+    a temperature keeps the target's sampling distribution; top_k, top_p
+    and min_p do not combine with a draft.
     ``mesh`` (decode on a device mesh, ROADMAP A9b) is not ported yet.
     """
     import numpy as np
 
     from tensorflowonspark_tpu_torch.models.llama import generate
+    from tensorflowonspark_tpu_torch.models.speculative import speculative_generate
 
     if mesh is not None:
         raise NotImplementedError("decode on a device mesh is not ported yet: ROADMAP A9b")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if draft is not None and (top_k is not None or top_p is not None or min_p is not None):
+        raise ValueError(
+            "speculative decoding supports greedy (temperature 0) and plain-temperature "
+            "sampling, not top_k/top_p/min_p truncation (truncation would change the "
+            "distribution the rejection rule preserves)"
+        )
     if not prompts:
         raise PromptError("no prompts given")
     bad = [i for i, p in enumerate(prompts) if not p or len(p) > width]
@@ -231,11 +247,18 @@ def decode_batches(model, prompts: list[list[int]], *, batch_size: int, width: i
         for i, p in enumerate(chunk):
             padded[i, :len(p)] = p
             lengths[i] = len(p)
-        toks = generate(
-            model, padded, max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
-            top_p=top_p, min_p=min_p, generator=generator, eos_id=eos_id,
-            prompt_lengths=None if uniform else lengths,
-        ).cpu().numpy()
+        if draft is not None:
+            toks = speculative_generate(
+                model, draft, padded, max_new_tokens=max_new_tokens, k=spec_k, eos_id=eos_id,
+                prompt_lengths=None if uniform else lengths, temperature=temperature,
+                generator=generator,
+            ).cpu().numpy()
+        else:
+            toks = generate(
+                model, padded, max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, min_p=min_p, generator=generator, eos_id=eos_id,
+                prompt_lengths=None if uniform else lengths,
+            ).cpu().numpy()
         for row in toks[:n_real]:
             row = row.tolist()
             if eos_id is not None and eos_id in row:
@@ -318,6 +341,9 @@ def main(argv: list[str] | None = None) -> int:
     prompts = [list(map(int, r["tokens"])) for r in rows]
     if not prompts:
         raise ValueError(f"no prompts in {args.prompts}")
+    if args.score and args.draft_checkpoint:
+        raise SystemExit("--score is a plain forward; --draft-checkpoint (speculative "
+                         "decoding) does not apply")
     if args.score:
         return _score_main(args, model, cfg, prompts)
     width = max(len(p) for p in prompts)
@@ -326,6 +352,11 @@ def main(argv: list[str] | None = None) -> int:
             f"longest prompt ({width}) + max_new_tokens ({args.max_new_tokens}) exceeds "
             f"max_seq_len ({cfg.max_seq_len})"
         )
+    draft = None
+    if args.draft_checkpoint:
+        dcfg = _load_config(argparse.Namespace(model=args.draft_model,
+                                               config_overrides=args.draft_config_overrides))
+        draft = load_model(dcfg, _load_params(args.draft_checkpoint, dcfg), device)
     completions, _ = decode_batches(
         model, prompts, batch_size=args.batch_size, width=width,
         max_new_tokens=args.max_new_tokens,
@@ -334,6 +365,7 @@ def main(argv: list[str] | None = None) -> int:
         eos_id=args.eos_id,
         # uniform corpora skip the padded path's scatter writes
         uniform=all(len(p) == width for p in prompts),
+        draft=draft, spec_k=args.spec_k,
     )
     out = _open_output(args.output)
     try:

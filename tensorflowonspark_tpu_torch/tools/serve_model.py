@@ -68,6 +68,12 @@ Usage::
         [--device cpu] [--gen-replicas 2] [--cachetier-l2 HOST:PORT] \\
         [--admin-token-file F] [--rollout-channel DIR [--rollout-poll S]]
 
+Speculative decoding (``models.speculative``): ``--draft-checkpoint``
+loads a draft (``--draft-model``, ``--draft-config-overrides``) that
+proposes ``--spec-k`` tokens per verify forward on the fixed-batch path;
+``width + max_new + spec_k`` must fit both models' ``max_seq_len``, and
+``--gen-engine continuous`` refuses a draft (a ``ValueError`` at startup).
+
 ``--cachetier-l2`` attaches a fleet-global prefix L2 (``cachetier.
 PrefixL2`` over a ``CacheClient``) to every engine; it needs
 ``--gen-prefix-cache``, and a failure to attach leaves the engine on its
@@ -92,8 +98,7 @@ rolls adapter factors alone (a ``rollout.lora_state`` checkpoint), and
 
 Not ported yet; each raises ``NotImplementedError`` at startup naming its
 ROADMAP item: ``--export-dir``, ``--batch-size`` and ``/predict`` (A12,
-``api/export``), ``--gen-mesh`` (A9b, mesh/TP decode), a draft model
-(A10), and the SLO/history plane with ``/statusz`` (``--slo-*``,
+``api/export``), ``--gen-mesh`` (A9b, mesh/TP decode), and the SLO/history plane with ``/statusz`` (``--slo-*``,
 ``--obs-window-s``; A12). A request to ``/predict`` or ``/statusz`` answers
 501 with the same message.
 """
@@ -137,9 +142,6 @@ def _refuse_unported(gen: dict | None, export_dir: str | None = None) -> None:
     refused = [
         (export_dir is not None, *_PREDICT),
         (gen.get("mesh"), "--gen-mesh (decode on a device mesh)", "A9b, mesh/TP decode"),
-        (gen.get("draft_checkpoint") or gen.get("draft_model")
-         or gen.get("draft_config_overrides") or gen.get("spec_k") is not None,
-         "a draft model (speculative decoding)", "A10"),
         (any(gen.get(k) is not None for k in ("slo_ttft_s", "slo_latency_s", "slo_error_budget",
                                                "obs_window_s")), *_STATUSZ),
     ]
@@ -953,11 +955,13 @@ def _build_engine(gen: dict):
     coalescing window — reject at startup, not on the first request."""
     from tensorflowonspark_tpu_torch.serving import ContinuousBatcher
 
-    if gen.get("batch_window"):
-        raise ValueError(
-            "--gen-engine continuous does not compose with --gen-batch-window (the engine "
-            "schedules per token; that option belongs to the fixed-batch path)"
-        )
+    for bad, flag in (("batch_window", "--gen-batch-window"),
+                      ("draft_checkpoint", "--draft-checkpoint")):
+        if gen.get(bad):
+            raise ValueError(
+                f"--gen-engine continuous does not compose with {flag} (the engine "
+                "schedules per token; those options belong to the fixed-batch path)"
+            )
     cfg, _, load = _load_model(gen)
     max_new = int(gen.get("max_new_tokens", 64))
     raw_widths = gen.get("widths")
@@ -1055,11 +1059,18 @@ def _build_gen_fn(gen: dict):
     """Build ``prompts -> completions`` over a Llama checkpoint at one
     (gen_batch_size, gen_width) decode shape through the port's
     ``decode_batches``; sampled decodes draw from one generator seeded
-    ``gen["seed"]`` on the model's device, continued across requests.
-    Returns ``(gen_fn, batch_size, model)``."""
+    ``gen["seed"]`` on the model's device, continued across requests. With
+    ``draft_checkpoint`` the decode is speculative: a draft of
+    ``draft_model`` / ``draft_config_overrides`` proposes ``spec_k`` tokens
+    a verify. Returns ``(gen_fn, batch_size, model)``."""
     import torch
 
-    from tensorflowonspark_tpu_torch.tools.generate_text import decode_batches
+    from tensorflowonspark_tpu_torch.tools.generate_text import (
+        _load_config,
+        _load_params,
+        decode_batches,
+        load_model,
+    )
 
     if float(gen.get("temperature", 0.0)) == 0.0 and any(
         gen.get(k) is not None for k in ("top_k", "top_p", "min_p")
@@ -1081,7 +1092,32 @@ def _build_gen_fn(gen: dict):
             f"--gen-width ({width}) + --max-new-tokens ({max_new}) exceeds max_seq_len "
             f"({cfg.max_seq_len})"
         )
+    spec_k = 4 if gen.get("spec_k") is None else int(gen["spec_k"])
+    draft_load = None
+    if gen.get("draft_checkpoint"):
+        # fail at startup, before either checkpoint's restore
+        if spec_k < 1:
+            raise ValueError(f"--spec-k must be >= 1, got {spec_k}")
+        if any(gen.get(k) is not None for k in ("top_k", "top_p", "min_p")):
+            raise ValueError(
+                "--draft-checkpoint supports greedy and plain-temperature sampling; drop "
+                "--top-k/--top-p/--min-p (truncation would change the distribution the "
+                "rejection rule preserves)"
+            )
+        dcfg = _load_config(argparse.Namespace(
+            model=gen.get("draft_model") or "tiny",
+            config_overrides=gen.get("draft_config_overrides")))
+        # the verify window needs spec_k slots of headroom in both caches
+        for nm, c in (("--model", cfg), ("--draft-model", dcfg)):
+            if width + max_new + spec_k > c.max_seq_len:
+                raise ValueError(
+                    f"--gen-width ({width}) + --max-new-tokens ({max_new}) + --spec-k "
+                    f"({spec_k}) exceeds {nm}'s max_seq_len ({c.max_seq_len})"
+                )
+        draft_load = lambda: load_model(  # noqa: E731
+            dcfg, _load_params(gen["draft_checkpoint"], dcfg), device)
     model = load()
+    draft = None if draft_load is None else draft_load()
     gen_box = [torch.Generator(device=device).manual_seed(int(gen.get("seed", 0)))]
 
     def gen_fn(prompts: list[list[int]]) -> list[list[int]]:
@@ -1091,7 +1127,7 @@ def _build_gen_fn(gen: dict):
             pad_to_batch=True,
             generator=gen_box[0], temperature=float(gen.get("temperature", 0.0)),
             top_k=gen.get("top_k"), top_p=gen.get("top_p"), min_p=gen.get("min_p"),
-            eos_id=gen.get("eos_id"),
+            eos_id=gen.get("eos_id"), draft=draft, spec_k=spec_k,
         )
         return out
 
@@ -1256,13 +1292,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eos-id", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--draft-checkpoint", default=None,
-                   help="speculative decoding with a draft model (not ported: ROADMAP A10)")
-    p.add_argument("--draft-model", choices=("tiny", "1b", "7b"), default=None,
-                   help="the draft model's config (not ported: ROADMAP A10)")
+                   help="speculative decoding for /generate (--gen-engine fixed): a checkpoint "
+                   "of a draft model proposing --spec-k tokens per verify forward of the "
+                   "target; greedy output equals the plain greedy decode")
+    p.add_argument("--draft-model", choices=("tiny", "1b", "7b"), default="tiny")
     p.add_argument("--draft-config-overrides", default=None,
-                   help="the draft model's overrides (not ported: ROADMAP A10)")
-    p.add_argument("--spec-k", type=int, default=None,
-                   help="draft tokens per verify step (not ported: ROADMAP A10)")
+                   help="JSON LlamaConfig overrides of the draft model")
+    p.add_argument("--spec-k", type=int, default=4)
     p.add_argument("--gen-batch-window", type=float, default=0.0,
                    help="coalesce concurrent /generate requests: linger this many seconds "
                    "collecting requests into one shared decode batch (up to --gen-batch-size "

@@ -133,10 +133,6 @@ def test_cli_runs_as_a_module(tmp_path, weights):
 
 UNPORTED = [
     (["--mesh", "data=2"], "ROADMAP A9b"),
-    (["--draft-checkpoint", "draft/"], "ROADMAP A10"),
-    (["--draft-model", "tiny"], "ROADMAP A10"),
-    (["--draft-config-overrides", "{}"], "ROADMAP A10"),
-    (["--spec-k", "4"], "ROADMAP A10"),
 ]
 
 
@@ -144,6 +140,53 @@ UNPORTED = [
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tgen.main(["--checkpoint", str(tmp_path), "--prompts", "p", "--output", "o", *flags])
+
+
+DRAFT_CFG = '{"num_layers": 1, "hidden_size": 64, "intermediate_size": 96, "num_heads": 2, ' \
+    '"num_kv_heads": 1, "dtype": "float32"}'
+DRAFT_FLAGS = {
+    "--draft-checkpoint": [],
+    "--draft-model": ["--draft-model", "tiny"],
+    "--draft-config-overrides": ["--draft-config-overrides", DRAFT_CFG],
+    "--spec-k": ["--spec-k", "2", "--eos-id", "7"],
+}
+
+
+def _draft_checkpoint(tmp_path, overrides):
+    """A draft of the tiny preset with ``overrides`` and its own random
+    weights (seed 1), saved as the CLI loads it."""
+    from tensorflowonspark_tpu_torch.models.llama import Llama
+
+    cfg = tgen._load_config(tgen.build_parser().parse_args(
+        ["--checkpoint", "c", "--prompts", "p", "--output", "o", "--config-overrides",
+         overrides]))
+    params = {n: t.detach() for n, t in Llama(cfg, device="cpu", seed=1).named_parameters()}
+    return save_checkpoint(str(tmp_path / "draft"), {"params": params})
+
+
+@pytest.mark.parametrize("flag", list(DRAFT_FLAGS))
+def test_draft_flags_decode_as_the_plain_greedy_decode(tmp_path, weights, flag):
+    """Each speculative flag (once refused) decodes: the draft proposes
+    and the target verifies, so greedy completions equal the plain CLI's
+    (``tests/test_torch_speculative.py`` holds the decode to the JAX
+    package's); the draft of the tiny preset by default, or the smaller
+    one its overrides describe."""
+    ckpt = _checkpoint(tmp_path, weights[2])
+    extra = DRAFT_FLAGS[flag]
+    small = flag == "--draft-config-overrides"
+    draft = _draft_checkpoint(tmp_path, DRAFT_CFG if small else OVERRIDES)
+    common = [f for f in extra if f in ("--eos-id", "7")]
+    want = _cli(tmp_path, ckpt, "--max-new-tokens", str(NEW), *common)
+    flags = [] if small else ["--draft-config-overrides", OVERRIDES]
+    got = _cli(tmp_path, ckpt, "--max-new-tokens", str(NEW), "--draft-checkpoint", draft,
+               *flags, *extra)
+    assert got == want
+
+
+def test_score_refuses_a_draft(tmp_path, weights):
+    ckpt = _checkpoint(tmp_path, weights[2])
+    with pytest.raises(SystemExit, match="--score is a plain forward"):
+        _cli(tmp_path, ckpt, "--score", "--draft-checkpoint", str(ckpt))
 
 
 @pytest.mark.parametrize("leaf,what", [({"q": torch.zeros(2, dtype=torch.int8),

@@ -258,8 +258,9 @@ def test_quantized_kernels_not_ported():
 
 def test_unported_features_raise():
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.Llama(dataclasses.replace(tcfg, num_experts=4), device="cpu")
+    # MoE experts are ported (tests/test_torch_moe.py): each block's MLP is a bank
+    moe = tllama.Llama(dataclasses.replace(tcfg, num_experts=4), device="cpu")
+    assert tuple(moe.layers[0].mlp.w_gate.shape) == (4, tcfg.hidden_size, tcfg.intermediate_size)
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.Llama(dataclasses.replace(tcfg, remat=True, remat_policy="offload"), device="cpu")
     model = tllama.Llama(tcfg, device="cpu")

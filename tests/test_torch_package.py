@@ -464,6 +464,52 @@ def test_chip_smoke_lora_phase_rehearses_on_cpu(capsys):
     assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
 
 
+def test_chip_smoke_moe_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase moe runs on the CPU at a tiny size: every check of
+    (a)-(d) passes — the MoE train step and its loss against the CPU, one
+    block against the plain version at both capacities, decode against a
+    teacher-forced forward with the drops counted, the engine — and no
+    kernel is launched."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    launches = smoke.phase_moe(fa, layers=2, dec_layers=2, eng_layers=2, rehearse={
+        "device": "cpu", "tiny": True, "sizes": {
+            "batch": 2, "seq": 32, "steps": 2, "block_batch": 1, "block_seq": 32,
+            "dec_batch": 3, "dec_width": 24, "dec_min": 8, "dec_new": 6, "eng_widths": (16, 32),
+            "eng_requests": 3, "eng_threads": 2, "eng_min": 4, "eng_max": 30, "eng_new": 6,
+            "alone_len": 16}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "moe_checks" and check["ok"], check
+    assert sorted(check["checks"]) == ["a_loss_cpu", "a_loss_parts", "a_train", "b_block",
+                                       "b_block_low_cf", "c_decode", "d_alone", "d_engine"]
+    assert check["err"]["b_block_low_cf"]["dropped_share"] > 0
+    assert check["err"]["a_loss_cpu"]["aux_sum"] > 100 * check["tol"]["loss_cpu"]
+    assert launches == {"fwd": 0, "dq": 0, "dkv": 0, "pair": 0, "cross": 0}
+
+
+def test_chip_smoke_spec_phase_rehearses_on_cpu(capsys):
+    """chip_smoke's phase spec runs on the CPU at a tiny size: greedy
+    speculative decoding through the three drafts against plain greedy in
+    fp32 and bf16 (the target itself accepting every draft in fp32), the
+    rejection rule's distribution, a sampled decode, and serve_model's
+    fixed path with a saved draft against the CLI."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    smoke = _import_root_module("chip_smoke")
+    smoke.phase_spec(fa, layers=2, rehearse={"device": "cpu", "tiny": True, "sizes": {
+        "batch": 3, "width": 24, "min_len": 8, "new": 8, "early_layers": 1, "draft_layers": 1,
+        "time_prompt": 8, "time_new": 8, "server_rows": 3}})
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    check = lines[-1]
+    assert check["case"] == "spec_checks" and check["ok"], check
+    assert sorted(check["checks"]) == ["a_greedy_bf16", "a_greedy_fp32", "b_accept",
+                                       "b_sampled", "c_server"]
+    assert check["err"]["a_greedy_fp32"]["self"]["accepted_per_verify"] == check["k"]
+    assert check["err"]["c_server"]["equal_to_cli"]
+
+
 FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_bulk_3pct",
           "dq_frontier_unmasked", "dk_drop_last_q_tile", "dv_drop_first_q_tile",
           "dkv_frontier_unmasked", "bn_ragged_unmasked", "bn_drop_first_split", "bn_cross_dy_dy",
@@ -478,7 +524,8 @@ FAULTS = ["fwd_no_rescale", "fwd_frontier_unmasked", "dq_drop_last_k_tile", "dq_
           "l2_filler_before_event", "cache_close_leaves_conns_open",
           "loader_writes_running_tensors", "publish_keeps_reference", "rollback_skips_restore",
           "latest_crc_unchecked", "bank_gather_off_by_one", "int8_scale_on_input_axis",
-          "lora_swap_writes_in_place"]
+          "lora_swap_writes_in_place", "moe_priority_choices_major", "moe_aux_loss_dropped",
+          "spec_accepts_past_mismatch"]
 
 
 @pytest.mark.parametrize("fault", FAULTS)

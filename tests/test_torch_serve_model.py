@@ -6,7 +6,8 @@ params, the port's on the CPU over a ``save_checkpoint`` of those params
 moved by ``params_from_jax``. ``/generate`` (the fixed path and the
 continuous engine, plain and streamed), ``/v1/completions`` and ``/score``
 must return the same token ids, and logprobs and scores within 1e-4.
-``/healthz``, ``/readyz``, ``/metrics`` and ``/stats`` answer. Every
+``/healthz``, ``/readyz``, ``/metrics`` and ``/stats`` answer. A draft
+model serves the fixed path speculatively. Every
 option the port's server does not have yet raises
 ``NotImplementedError`` at startup naming its ROADMAP item, and its
 request paths answer 501 with the same message (the fleet and the prefix
@@ -151,9 +152,6 @@ def test_server_answers_as_the_jax_server_does(engine, checkpoints):
 
 REFUSED = {
     "mesh": (dict(mesh="model=2"), "A9b, mesh/TP decode"),
-    "draft_checkpoint": (dict(draft_checkpoint="/nonexistent"), "A10"),
-    "spec_k": (dict(spec_k=4), "A10"),
-    "draft_model": (dict(draft_model="tiny"), "A10"),
     "slo_ttft_s": (dict(slo_ttft_s=2.5), "A12"),
     "obs_window_s": (dict(obs_window_s=5.0), "A12"),
     "slo_error_budget": (dict(slo_error_budget=0.01), "A12"),
@@ -168,15 +166,56 @@ def test_unported_options_raise_naming_their_roadmap_item(name, checkpoints):
                                                   **extra))
 
 
+DRAFTS = {
+    "draft_checkpoint": {},
+    "spec_k": dict(spec_k=2),
+    "draft_model": dict(draft_model="tiny", eos_id=8),
+}
+
+
+@pytest.mark.parametrize("name", list(DRAFTS))
+def test_fixed_path_serves_through_a_draft(name, checkpoints):
+    """The speculative options (once refused) on the fixed-batch path: the
+    target as its own draft, so every proposal is accepted, and
+    ``/generate`` equals the same server without a draft."""
+    tdir = checkpoints[1]
+    extra = DRAFTS[name]
+    plain = {k: v for k, v in extra.items() if k == "eos_id"}
+    with _serving(tserve.make_server, _gen(tdir, "fixed", device="cpu", **plain)) as url:
+        want = _post(url, "/generate", {"prompts": PROMPTS})
+    with _serving(tserve.make_server, _gen(tdir, "fixed", device="cpu", draft_checkpoint=tdir,
+                                           draft_config_overrides=OVERRIDES, **extra)) as url:
+        got = _post(url, "/generate", {"prompts": PROMPTS})
+    assert got[0] == want[0] == 200, got
+    assert json.loads(got[1])["completions"] == json.loads(want[1])["completions"]
+
+
+def test_draft_options_are_checked_at_startup(checkpoints):
+    """As the JAX package's server: the continuous engine refuses a draft,
+    and the verify window must fit both models' caches."""
+    tdir = checkpoints[1]
+    with pytest.raises(ValueError, match="does not compose with --draft-checkpoint"):
+        tserve.make_server(None, port=0, gen=_gen(tdir, "continuous", device="cpu",
+                                                  draft_checkpoint=tdir))
+    with pytest.raises(ValueError, match=r"--spec-k \(41\) exceeds --model's max_seq_len"):
+        tserve.make_server(None, port=0, gen=_gen(tdir, "fixed", device="cpu",
+                                                  draft_checkpoint=tdir, spec_k=41,
+                                                  draft_config_overrides=OVERRIDES))
+    with pytest.raises(ValueError, match="--top-k/--top-p/--min-p"):
+        tserve.make_server(None, port=0, gen=_gen(tdir, "fixed", device="cpu",
+                                                  draft_checkpoint=tdir, temperature=0.5,
+                                                  top_k=4))
+
+
 def test_export_dir_and_cli_flags_are_refused(checkpoints):
     with pytest.raises(NotImplementedError, match="ROADMAP A12, api/export"):
         tserve.make_server("/nonexistent", port=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A9b, mesh/TP decode"):
         tserve.main(["--llama-checkpoint", checkpoints[1], "--device", "cpu",
                      "--gen-mesh", "model=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="does not compose with --draft-checkpoint"):
         tserve.main(["--llama-checkpoint", checkpoints[1], "--device", "cpu",
-                     "--draft-checkpoint", checkpoints[1]])
+                     "--gen-engine", "continuous", "--draft-checkpoint", checkpoints[1]])
     with pytest.raises(NotImplementedError, match="ROADMAP A12, api/export"):
         tserve.main(["--llama-checkpoint", checkpoints[1], "--device", "cpu",
                      "--batch-size", "32"])
