@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU: build, check and time its kernels,
-then train llama_1b and the BatchNorm conv nets for a few steps through them.
+then train llama_1b, the BatchNorm conv nets and the encoder and small-image
+families for a few steps through them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-seeds 1 2 3   # phase decode alone, per seed
@@ -16,7 +17,8 @@ Phases (one JSON line each, or more; any failure exits non-zero; the
    plain PyTorch version on the card, element by element and in Frobenius
    norm (limits in ``TOL``), at the llama_1b training shape (B=8, S=1024,
    H=16, D=128, bf16, causal) and at small GQA, sq != sk, dead-row, window
-   and segment cases; times of kernel, plain version and
+   and segment cases, ragged lengths (200 causal, and ViT's 197 with no
+   causal mask); times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only: the port never calls
    it; forward for B1; for B2 and B3, which it computes in one call, the
    backward alone on a kept forward, as device time under the profiler), and
@@ -318,6 +320,29 @@ Phases (one JSON line each, or more; any failure exits non-zero; the
    '{"num_layers": 2}'``: ``/generate`` equal to ``generate_text``'s CLI on
    the same prompts, and ``--gen-engine continuous`` with a draft refused
    with the reference's ``ValueError``.
+17. families — the encoder and small-image families (``models/{bert,vit,
+   unet,mnist,zoo}.py``) at full width, seed 0, bf16, limits in
+   ``FAMILIES_TOL``: (a) ``BertForClassification`` (BERT-base) at batch 32,
+   seq 512, each row's length drawn from 128-512 and its 0/1 mask passed as
+   segment ids: the first loss and the gradients of ``layer_0``'s query
+   and of the pooler through ``impl="auto"`` (the flash kernels, no causal
+   mask) against ``impl="xla"`` on the same weights and batch, then one
+   warm-up and 3 timed ``build_train_step`` steps (``adamw(1e-4)``) with
+   launches of the forward, dQ and dK/dV kernels; ``zoo.build("bert_base")``
+   (masked LM) the same at seq 128. (b) ``zoo.build("vit_b16")`` at batch
+   64, 224x224: one warm-up and 3 timed steps under ``auto`` (the plain
+   attention at 197 tokens, as the gate sends it), then one forward with
+   ``attention_impl="flash"`` against ``"xla"`` (forward launches > 0).
+   (c) ``zoo.build("unet")`` at widths (64, 128, 256, 512) / 1024 and 3
+   classes, batch 16, 128x128, ``adamw(1e-3)`` without decay, one warm-up
+   and 3 timed steps on one batch: losses finite and falling. (d) The three
+   examples through ``tfcluster.run``, one node each: ``resnet_imagenet``
+   (ResNet-50, batch 64, 3 steps, a checkpoint; its node's launches of the
+   batch-norm kernels > 0), ``mnist_spark`` (``InputMode.SPARK``, 2,048
+   records pushed by ``cluster.train``, the CNN, the chief's export) and
+   ``unet_segmentation`` (full width, 64x64, 3 steps, mIoU, the export).
+   Step ms and images/s or tokens/s per part, launches, ``wall_s``, each
+   part's seconds.
 
 The last lines are the ``kernels`` summary (the bn kernels' ``ms``,
 ``plain_ms``, ``bound_ms`` and ``library_ms`` are per ResNet-50 step: the
@@ -328,7 +353,9 @@ timed steps, ``elastic_launches`` phase elastic's steps in both nodes,
 fleet's server, ``rollout_launches`` phase rollout's trainer steps and
 its server's ``/score``, ``lora_launches`` phase lora's fine-tune steps
 and its server's ``/score``, ``moe_launches`` phase moe's timed train
-steps, ``spec_launches`` phase spec's greedy decodes, none),
+steps, ``spec_launches`` phase spec's greedy decodes, none,
+``families_launches`` phase families' BERT steps, ViT's flash forward and
+the ResNet example's node),
 the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -553,6 +580,10 @@ SMALL_CASES = [
     ("window_100", dict(b=2, sq=384, sk=384, hq=4, hk=2, d=128), dict(causal=True, window=100)),
     ("window_1", dict(b=1, sq=128, sk=128, hq=2, hk=2, d=64), dict(causal=True, window=1)),
     ("ragged_sq200", dict(b=1, sq=200, sk=200, hq=2, hk=1, d=64), dict(causal=True)),
+    # ViT-B/16's 197 tokens: no causal mask hides the columns past sk in
+    # the last key tile, so the kernels mask them themselves
+    ("ragged_sq197_noncausal", dict(b=2, sq=197, sk=197, hq=12, hk=12, d=64),
+     dict(causal=False)),
 ]
 
 
@@ -3291,7 +3322,7 @@ def phase_serve(fa, layers=16, rehearse=None, seed=0):
 FLEET = dict(replicas=2, l2_bytes=1 << 30, l2_prompt=384, l2_tail=16, l2_new=32, watchdog_s=3.0,
              wedge_s=9.0, drain_s=60.0, probe_s=0.5, close_rounds=50, lookup_bound_s=0.5, spawn_wait_s=600.0, ready_wait_s=300.0,
              stall_cycles=2_000_000_000, lookup_rounds=5, server_requests=4, post_kill=4,
-             light_requests=12, light_new=64)
+             light_requests=12, light_new=64, kill_rounds=20)
 # (c) and (d) drive the `light_requests` greedy requests of phase serve's
 # traffic at budgets of at most `light_new` tokens.
 # Limits of phase fleet: phase serve's confident-token rule for the fleet's
@@ -3483,24 +3514,35 @@ def spawn_fleet_checks(model, sf, srouter, reqs, light, want, c, l2_case, tol):
              and d["l2"]["hit_equals_inproc_miss"])
 
     # SIGKILL a child while it holds queued streams (not yet at their first
-    # token: they fail over) and decoding ones (they end with ReplicaGone)
+    # token: they fail over) and decoding ones (they end with ReplicaGone).
+    # A round of traffic can end before the victim is seen holding a stream
+    # that has no first token (a prefill is a short window on a loaded
+    # host); then the round's outcomes are kept and another round starts,
+    # up to kill_rounds, so that the kill lands on such a stream.
     fo0 = srouter.stats()["router"]["failovers"]
     victim = views[1]
-    started, res = threading.Event(), {}
+    earlier, held, at_kill = [], False, {}
 
-    def traffic():
+    def traffic(res, started):
         res["out"], _, res["ended"] = drive_outcomes(srouter, reqs, c["threads"], c["stagger"],
                                                      order=light, started=started)
 
-    tr = threading.Thread(target=traffic)
-    tr.start()
-    started.wait(timeout=300)
-    deadline, at_kill = time.perf_counter() + 60, {}
-    while time.perf_counter() < deadline:
-        at_kill = victim["handle"].stats()
-        if at_kill.get("queue_depth", 0) >= 1 or at_kill.get("prefill_in_progress"):
+    for _ in range(c["kill_rounds"]):
+        started, res = threading.Event(), {}
+        tr = threading.Thread(target=traffic, args=(res, started))
+        tr.start()
+        started.wait(timeout=300)
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline and tr.is_alive():
+            at_kill = victim["handle"].stats()
+            if at_kill.get("queue_depth", 0) >= 1 or at_kill.get("prefill_in_progress"):
+                held = True
+                break
+            time.sleep(0.01)
+        if held:
             break
-        time.sleep(0.01)
+        tr.join(timeout=900)
+        earlier.append(res)
     t_kill = time.perf_counter()
     os.kill(victim["handle"].pid, 9)
     post = {}
@@ -3560,8 +3602,12 @@ def spawn_fleet_checks(model, sf, srouter, reqs, light, want, c, l2_case, tol):
                                        return_logprobs=True)
         again[i] = ("ok", toks[0][0], toks[1][0], None)
     cmp_again = against_engine(model, reqs, list(again), again, want, tol)
+    earlier_ok = all(r.get("ended") and len(r.get("out", {})) == len(light)
+                     and all(o[0] == "ok" for o in r["out"].values()) for r in earlier)
     d["kill"] = {"at_kill": {k: at_kill.get(k) for k in ("queue_depth", "slots_busy",
                                                           "prefill_in_progress")},
+                 "held_at_kill": held, "earlier_rounds": len(earlier),
+                 "earlier_rounds_ok": earlier_ok,
                  "failovers": srouter.stats()["router"]["failovers"] - fo0,
                  "resolved": len(out), "ended": res.get("ended"),
                  "terminal_errors": [(o[1], o[3]) for o in errors][:6],
@@ -3569,7 +3615,8 @@ def spawn_fleet_checks(model, sf, srouter, reqs, light, want, c, l2_case, tol):
                  "vs_engine": cmp_d, "children_vs_engine": cmp_again,
                  "outstanding": srouter.stats()["router"]["outstanding"]}
     k = d["kill"]
-    kill_ok = (bool(res.get("ended")) and len(out) == len(light) and k["failovers"] >= 1
+    kill_ok = (held and earlier_ok and bool(res.get("ended")) and len(out) == len(light)
+               and k["failovers"] >= 1
                and all(o[1] == "ReplicaGone" and o[3] > 0 for o in errors)
                and all(x == "ok" for x in k["post_kill"]) and back is not None
                and not k["outstanding"] and cmp_d["confident_mismatches"] == 0
@@ -4899,6 +4946,29 @@ def bank_teacher_forced(module, prompt, completion, k):
     return logits[len(prompt) - 1:len(prompt) - 1 + len(completion)].float()
 
 
+def captured(fn):
+    """``fn()`` with the process's standard output (the nodes' too, which
+    share it) captured: (result, output, seconds)."""
+    with tempfile.TemporaryFile(mode="w+") as cap:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(cap.fileno(), 1)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except Exception as e:
+            sys.stdout.flush()
+            cap.seek(0)
+            raise RuntimeError(f"{e}; the output: {cap.read()[-3000:]}") from e
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        wall = time.perf_counter() - t0
+        cap.seek(0)
+        return out, cap.read(), wall
+
+
 def run_example(argv, cuda):
     """``examples/llama_fsdp.py``'s ``main_fun`` on one node launched by the
     port's ``tfcluster.run`` (a process group of one), its printed lines
@@ -4908,28 +4978,16 @@ def run_example(argv, cuda):
     from tensorflowonspark_tpu_torch.examples import llama_fsdp
 
     args = llama_fsdp.parse_args(argv + ([] if cuda else ["--cpu"]))
-    with tempfile.TemporaryFile(mode="w+") as cap:
-        sys.stdout.flush()
-        saved = os.dup(1)
-        os.dup2(cap.fileno(), 1)
-        try:
-            t0 = time.perf_counter()
-            cluster = tfcluster.run(llama_fsdp.main_fun, args, num_executors=1,
-                                    input_mode=InputMode.TENSORFLOW, distributed=True,
-                                    reservation_timeout=600,
-                                    env=None if cuda else {"CUDA_VISIBLE_DEVICES": "",
-                                                           "OMP_NUM_THREADS": "1"})
-            cluster.shutdown(timeout=600)
-            wall = time.perf_counter() - t0
-        except Exception as e:
-            cap.seek(0)
-            raise RuntimeError(f"{e}; the node's output: {cap.read()[-3000:]}") from e
-        finally:
-            sys.stdout.flush()
-            os.dup2(saved, 1)
-            os.close(saved)
-        cap.seek(0)
-        out = cap.read()
+
+    def drive():
+        cluster = tfcluster.run(llama_fsdp.main_fun, args, num_executors=1,
+                                input_mode=InputMode.TENSORFLOW, distributed=True,
+                                reservation_timeout=600,
+                                env=None if cuda else {"CUDA_VISIBLE_DEVICES": "",
+                                                       "OMP_NUM_THREADS": "1"})
+        cluster.shutdown(timeout=600)
+
+    _, out, wall = captured(drive)
     return out, wall
 
 
@@ -6322,6 +6380,328 @@ def phase_spec(fa, layers=16, rehearse=None, seed=0, parts="abc"):
     return windows.total
 
 
+FAMILIES = dict(bert_batch=32, bert_seq=512, bert_min_len=128, steps=3, lr=1e-4, mlm_batch=32,
+                mlm_seq=128, vit_batch=64, unet_batch=16, unet_size=128, unet_lr=1e-3,
+                example_wait_s=600,
+                resnet_args=["--steps", "3", "--batch-size", "64"],
+                mnist_args=["--num-records", "2048", "--batch-size", "256"],
+                unet_args=["--steps", "3", "--batch-size", "8", "--size", "64"])
+# Limits of phase families, the kernel route (flash attention) against the
+# plain route (impl="xla") on the same weights and batch, in bf16: "loss",
+# the relative gap of BERT-base's first loss; "grad", the Frobenius-relative
+# gap of its gradients of layer_0's query and of the pooler; "logits", the
+# rms of ViT-B/16's logits' gap over their own rms.
+FAMILIES_TOL = dict(loss=1e-2, grad=5e-2, logits=2e-2)
+
+
+def rel_gap(a, b) -> float:
+    """||a - b|| / ||b|| in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def family_steps(step, state, batch, steps, cuda, stats=None):
+    """One warm-up and ``steps`` timed calls of a train step on one batch:
+    (state, stats, losses of every call, ms per timed step)."""
+    losses = []
+
+    def once(state, stats):
+        if stats is None:
+            state, loss = step(state, batch)
+        else:
+            state, stats, loss = step(state, stats, batch)
+        losses.append(loss)
+        return state, stats
+
+    state, stats = once(state, stats)
+    sync_on(cuda)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, stats = once(state, stats)
+    sync_on(cuda)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    return state, stats, [float(x) for x in losses], ms
+
+
+def example_node(args, ctx):
+    """A family example's ``main_fun`` (``args.example``, a module of
+    ``tensorflowonspark_tpu_torch.examples``) on a node, with the kernels'
+    launches of the node's run written to ``args.report``."""
+    import importlib
+
+    from tensorflowonspark_tpu_torch.ops import bn_kernels as bn
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    bn.reset_launches()
+    importlib.import_module(f"tensorflowonspark_tpu_torch.examples.{args.example}").main_fun(
+        args, ctx)
+    if torch.cuda.is_available() and args.device is None:
+        torch.cuda.synchronize()
+    with open(args.report, "w") as f:
+        json.dump({**fa.LAUNCHES, **bn.LAUNCHES}, f)
+
+
+def node_line(out, marker):
+    """The first ``node…:`` line of an example's output that holds ``marker``."""
+    return next((x for x in out.splitlines() if x.startswith("node") and marker in x), None)
+
+
+def phase_families(fa, bn, rehearse=None, seed=0, parts="abcd"):
+    """The encoder and small-image families on the card (see the module
+    docstring, phase 17); raises SystemExit when a check fails. ``parts``
+    picks the parts; with ``rehearse={"device": "cpu", "tiny": True, "sizes":
+    {...}}`` it runs the tiny configs on the CPU, where the kernel route is
+    ``impl="flash"`` (the kernels' plain versions) and no kernel launches.
+    Returns every kernel's launches on the phase's main path: BERT's train
+    steps, ViT's flash forward and the ResNet example's node."""
+    from tensorflowonspark_tpu_torch.cluster import tfcluster
+    from tensorflowonspark_tpu_torch.cluster.tfcluster import InputMode
+    from tensorflowonspark_tpu_torch.compute import TrainState, adamw, build_train_step
+    from tensorflowonspark_tpu_torch.compute.checkpoint import CheckpointManager
+    from tensorflowonspark_tpu_torch.examples import mnist_spark, resnet_imagenet, unet_segmentation
+    from tensorflowonspark_tpu_torch.models import bert, vit, zoo
+
+    rehearse = rehearse or {}
+    device = torch.device(rehearse.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    tiny = bool(rehearse.get("tiny"))
+    c = {**FAMILIES, **rehearse.get("sizes", {})}
+    tol = dict(FAMILIES_TOL)
+    route = "auto" if cuda else "flash"
+    windows = LaunchWindows(fa, bn, cuda)
+    err, ok, nums, part_s, lap_t = {}, {}, {}, {}, [time.perf_counter()]
+    t_phase = lap_t[0]
+    steps = c["steps"]
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name], lap_t[0] = now - lap_t[0], now
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    tmp = tempfile.mkdtemp(prefix="tfos_families_")
+    try:
+        if "a" in parts:
+            # (a) BERT-base classification: ragged rows, the mask as segment ids
+            with Guarded("a_bert", ok, err):
+                cfg = (bert.BertConfig.tiny(dtype=torch.float32) if tiny
+                       else bert.BertConfig.bert_base())
+                b, s = c["bert_batch"], c["bert_seq"]
+                rng = np.random.default_rng(seed + 60)
+                lengths = rng.integers(c["bert_min_len"], s + 1, b)
+                lengths[0] = s
+                mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+                batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                                    * mask).to(device),
+                         "mask": torch.from_numpy(mask).to(device),
+                         "label": torch.from_numpy(rng.integers(0, 2, b)).to(device)}
+                models = {}
+                for impl in (route, "xla"):
+                    m = bert.BertForClassification(dataclasses.replace(cfg, attention_impl=impl),
+                                                   device=device, seed=seed)
+                    if models:
+                        m.load_state_dict(next(iter(models.values())).state_dict())
+                    models[impl] = m
+                names = ("bert.layer_0.query.weight", "bert.pooler.weight")
+                first = {}
+                for impl, m in models.items():
+                    params = dict(m.named_parameters())
+                    loss = bert.classification_loss_fn(m)(params, batch)
+                    grads = torch.autograd.grad(loss, [params[n] for n in names])
+                    first[impl] = (float(loss.detach()), grads)
+                gaps = {"loss": abs(first[route][0] - first["xla"][0]) / abs(first["xla"][0]),
+                        **{n: rel_gap(g, gx) for n, g, gx in
+                           zip(names, first[route][1], first["xla"][1])}}
+                del first
+                model = models.pop(route)
+                models.clear()
+                tx = adamw(c["lr"])
+                state = TrainState.create(model.named_parameters(), tx)
+                step = build_train_step(bert.classification_loss_fn(model), tx, device=device)
+                with windows:
+                    state, _, losses, ms = family_steps(step, state, batch, steps, cuda)
+                launches = dict(windows.total)
+                nums["a_bert"] = {"step_ms": ms, "tokens_per_s": b * s / ms * 1e3,
+                                  "real_tokens_per_s": int(mask.sum()) / ms * 1e3,
+                                  "launches": launches,
+                                  "launches_per_step": {k: v / (steps + 1)
+                                                        for k, v in launches.items()},
+                                  "peak_mem_gb": peak()}
+                err["a_bert"] = {"gaps": gaps, "losses": losses, "lengths": lengths.tolist()}
+                kernel_ok = (all(launches[k] > 0 for k in ("fwd", "dq", "dkv")) if cuda
+                             else all(v == 0 for v in launches.values()))
+                ok["a_bert"] = (kernel_ok and gaps["loss"] <= tol["loss"]
+                                and all(gaps[n] <= tol["grad"] for n in names)
+                                and all(math.isfinite(x) for x in losses))
+                del model, state, step
+            lap("a_bert")
+            with Guarded("a_mlm", ok, err):
+                entry = zoo.build("bert_base", tiny=tiny, device=device, seed=seed)
+                inp = entry.make_input(c["mlm_batch"])
+                inp = {k: torch.from_numpy(v[:, :c["mlm_seq"]]).to(device) for k, v in inp.items()}
+                tx = adamw(c["lr"])
+                state = TrainState.create(entry.model.named_parameters(), tx)
+                step = build_train_step(entry.make_loss(), tx, device=device)
+                before = dict(windows.total)
+                with windows:
+                    state, _, losses, ms = family_steps(step, state, inp, steps, cuda)
+                got = {k: windows.total[k] - before[k] for k in before}
+                b, s = inp["tokens"].shape
+                nums["a_mlm"] = {"step_ms": ms, "tokens_per_s": b * s / ms * 1e3,
+                                 "launches": got, "seq": s}
+                err["a_mlm"] = {"losses": losses}
+                ok["a_mlm"] = (all(math.isfinite(x) for x in losses)
+                               and (all(got[k] > 0 for k in ("fwd", "dq", "dkv")) if cuda
+                                    else not any(got.values())))
+                del entry, state, step
+            lap("a_mlm")
+
+        if "b" in parts:
+            # (b) ViT-B/16: 3 steps under auto (the plain path at 197 tokens),
+            # then one forward through the kernels against the plain route
+            with Guarded("b_vit", ok, err):
+                entry = zoo.build("vit_b16", tiny=tiny, device=device, seed=seed)
+                model = entry.model
+                batch = {k: torch.from_numpy(v).to(device)
+                         for k, v in entry.make_input(c["vit_batch"]).items()}
+                tx = adamw(c["lr"])
+                state = TrainState.create(model.named_parameters(), tx)
+                step = build_train_step(entry.make_loss(), tx, device=device)
+                fa.reset_launches()
+                state, _, losses, ms = family_steps(step, state, batch, steps, cuda)
+                auto_launches = dict(fa.LAUNCHES)
+                outs = {}
+                for impl in ("flash", "xla"):
+                    m = vit.ViT(dataclasses.replace(entry.config, attention_impl=impl),
+                                device=device, seed=seed)
+                    m.load_state_dict(model.state_dict())
+                    before = dict(windows.total)
+                    with torch.no_grad(), windows:
+                        outs[impl] = m(batch["image"])
+                    if impl == "flash":
+                        fwd = {k: windows.total[k] - before[k] for k in before}
+                    del m
+                gap = rel_gap(outs["flash"], outs["xla"])
+                nums["b_vit"] = {"step_ms": ms, "images_per_s": c["vit_batch"] / ms * 1e3,
+                                 "tokens": (entry.config.image_size
+                                            // entry.config.patch_size) ** 2 + 1,
+                                 "auto_step_launches": auto_launches, "flash_fwd_launches": fwd,
+                                 "peak_mem_gb": peak()}
+                err["b_vit"] = {"logits_gap": gap, "losses": losses}
+                ok["b_vit"] = (gap <= tol["logits"] and all(math.isfinite(x) for x in losses)
+                               and (fwd["fwd"] > 0 if cuda else not any(fwd.values())))
+                del entry, model, state, step, outs
+            lap("b_vit")
+
+        if "c" in parts:
+            # (c) U-Net at its published widths, 3 steps on one batch
+            with Guarded("c_unet", ok, err):
+                entry = zoo.build("unet", tiny=tiny, num_classes=3, device=device, seed=seed)
+                rng = np.random.default_rng(seed + 61)
+                size, b = c["unet_size"], c["unet_batch"]
+                batch = {"image": torch.from_numpy(rng.random((b, size, size, 3),
+                                                              dtype=np.float32)).to(device),
+                         "mask": torch.from_numpy(rng.integers(0, 3, (b, size, size))).to(device)}
+                tx = adamw(c["unet_lr"], weight_decay=0.0)
+                state = TrainState.create(entry.model.named_parameters(), tx)
+                step = build_train_step(entry.make_loss(), tx, device=device)
+                state, _, losses, ms = family_steps(step, state, batch, steps, cuda)
+                nums["c_unet"] = {"step_ms": ms, "images_per_s": b / ms * 1e3,
+                                  "features": list(entry.config.features),
+                                  "bottleneck": entry.config.bottleneck_features,
+                                  "size": size, "peak_mem_gb": peak()}
+                err["c_unet"] = {"losses": losses}
+                ok["c_unet"] = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                del entry, state, step
+            lap("c_unet")
+        if cuda:
+            torch.cuda.empty_cache()
+
+        if "d" in parts:
+            # (d) the three examples, each through tfcluster.run
+            env = None if cuda else {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+            cpu = [] if cuda else ["--cpu"]
+            small = ["--tiny"] if tiny else []
+            wait = c["example_wait_s"]
+            with Guarded("d_resnet", ok, err):
+                args = resnet_imagenet.parse_args(c["resnet_args"] + small + cpu + [
+                    "--model-dir", os.path.join(tmp, "resnet")])
+                args.example, args.report = "resnet_imagenet", os.path.join(tmp, "resnet.json")
+
+                def drive():
+                    cluster = tfcluster.run(example_node, args, num_executors=1,
+                                            input_mode=InputMode.TENSORFLOW, distributed=True,
+                                            reservation_timeout=wait, env=env)
+                    cluster.shutdown(timeout=wait)
+
+                _, out, wall = captured(drive)
+                with open(args.report) as f:
+                    launches = json.load(f)
+                for k in windows.total:
+                    windows.total[k] += launches[k]
+                line = node_line(out, "examples/sec")
+                saved = CheckpointManager(os.path.join(tmp, "resnet")).all_steps()
+                err["d_resnet"] = {"line": line, "launches": launches, "saved_steps": saved,
+                                   "wall_s": wall}
+                ok["d_resnet"] = (line is not None and "nan" not in line and bool(saved)
+                                  and ((launches["pair"] > 0 and launches["cross"] > 0) if cuda
+                                       else not any(launches.values())))
+                if not ok["d_resnet"]:
+                    err["d_resnet"]["output_tail"] = out[-3000:]
+            lap("d_resnet")
+            with Guarded("d_mnist", ok, err):
+                args = mnist_spark.parse_args(c["mnist_args"] + cpu + [
+                    "--model-dir", os.path.join(tmp, "mnist")])
+                _, out, wall = captured(lambda: mnist_spark.run(args, 1, env=env,
+                                                                reservation_timeout=wait))
+                line = node_line(out, "final loss")
+                want = f"{args.num_records // args.batch_size} steps,"
+                exported = os.path.exists(os.path.join(tmp, "mnist", "tree.json"))
+                err["d_mnist"] = {"line": line, "exported": exported, "wall_s": wall}
+                ok["d_mnist"] = (line is not None and want in line and "nan" not in line
+                                 and exported)
+                if not ok["d_mnist"]:
+                    err["d_mnist"]["output_tail"] = out[-3000:]
+            lap("d_mnist")
+            with Guarded("d_unet", ok, err):
+                args = unet_segmentation.parse_args(c["unet_args"] + small + cpu + [
+                    "--model-dir", os.path.join(tmp, "unet")])
+
+                def drive():
+                    cluster = tfcluster.run(unet_segmentation.main_fun, args, num_executors=1,
+                                            input_mode=InputMode.TENSORFLOW,
+                                            reservation_timeout=wait, env=env)
+                    cluster.shutdown(timeout=wait)
+
+                _, out, wall = captured(drive)
+                line = node_line(out, "mIoU")
+                exported = os.path.exists(os.path.join(tmp, "unet", "tree.json"))
+                err["d_unet"] = {"line": line, "exported": exported, "wall_s": wall}
+                ok["d_unet"] = line is not None and "nan" not in line and exported
+                if not ok["d_unet"]:
+                    err["d_unet"]["output_tail"] = out[-3000:]
+            lap("d_unet")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+
+    nums["wall_s"] = time.perf_counter() - t_phase
+    nums["part_s"] = part_s
+    nums["launches"] = windows.total
+    nums["nvidia_smi"] = nvidia_smi() if cuda else None
+    emit({"phase": "families", "part": "numbers", **nums})
+    good = bool(ok) and all(ok.values())
+    emit({"phase": "families", "case": "families_checks", "seed": seed, "parts": parts,
+          "route": route, "checks": ok, "err": err, "tol": tol, "ok": good})
+    if not good:
+        raise SystemExit("families phase failed: "
+                         + ", ".join(k_ for k_, v in ok.items() if not v))
+    return windows.total
+
+
 def decode_seeds(fa, seeds: list[int]) -> int:
     """Phase decode alone at each of ``seeds`` (weights and data), to read
     the spread of its checks against ``DECODE_TOL``: every seed's check
@@ -6384,11 +6764,12 @@ def main(argv: list[str]) -> int:
     lora = timed("lora", phase_lora, fa, train_step_ms=train_step_ms,
                  serve_layers=SERVING_DEPTH)
     spec = timed("spec", phase_spec, fa)
+    families = timed("families", phase_families, fa, bn)
     emit({"phase": "script", "wall_s": time.perf_counter() - t_script, "phase_s": phase_s})
     counts = {"mesh": (mesh_flash, mesh_bn), "elastic": (elastic_flash, elastic_bn),
               "score": (score, score), "serve": (serve, serve), "fleet": (fleet, fleet),
               "rollout": (rollout, rollout), "moe": (moe, moe), "lora": (lora, lora),
-              "spec": (spec, spec)}
+              "spec": (spec, spec), "families": (families, families)}
     emit({"kernels": [
         {"name": f"flash_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[kind], "launches": launches[kind],

@@ -1,5 +1,7 @@
-"""Layers shared by the BatchNorm conv nets (ResNet, VGG, Inception-v3):
-flax's ``nn.Conv``, ``nn.Dense``, pooling and auto-naming in PyTorch.
+"""Layers shared by the port's flax families (the BatchNorm conv nets
+ResNet, VGG and Inception-v3, and MNIST, U-Net, ViT and BERT): flax's
+``nn.Conv``, ``nn.Dense``, ``nn.LayerNorm``, ``nn.GroupNorm``, pooling and
+auto-naming in PyTorch.
 
 Activations are NHWC at every function boundary, as in the JAX package.
 A convolution views its NHWC input as NCHW (``permute(0, 3, 1, 2)`` of an
@@ -68,17 +70,24 @@ def per_sample(fn, *batch_args, replicated=()):
     )(*batch_args, *weights)
 
 
-def conv_param_shardings(params, mesh):
-    """Placements of a conv net's params (name -> tensor) from the layout
-    table's 'resnet' rules, which the JAX package's ResNet, VGG and
-    Inception share: each kernel's output channels over ``fsdp`` where they
-    divide, the rest replicated. Each spec is the one JAX gives the param's
-    flax leaf (HWIO, ``(in, out)``), permuted onto the port's OIHW and
-    ``(out, in)`` weights (``models.convert.jax_leaf``)."""
-    from tensorflowonspark_tpu_torch.compute import layout
-    from tensorflowonspark_tpu_torch.models.convert import jax_leaf
+def table_shardings(table: str):
+    """``(params, mesh) -> placements`` of a flax-named model's params
+    (name -> tensor) from the layout table ``table``: each spec the one JAX
+    gives the param's flax leaf (HWIO, ``(in, out)``), permuted onto the
+    port's OIHW and ``(out, in)`` weights (``models.convert.jax_leaf``)."""
 
-    return layout.param_shardings(params, mesh, "resnet", view=jax_leaf)
+    def shardings(params, mesh):
+        from tensorflowonspark_tpu_torch.compute import layout
+        from tensorflowonspark_tpu_torch.models.convert import jax_leaf
+
+        return layout.param_shardings(params, mesh, table, view=jax_leaf)
+
+    return shardings
+
+
+# the 'resnet' rules, which the JAX package's ResNet, VGG and Inception
+# share: each kernel's output channels over ``fsdp`` where they divide
+conv_param_shardings = table_shardings("resnet")
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -113,27 +122,36 @@ def _pad_nhwc(x, pads_h, pads_w, value=0.0):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(features, kernel, strides, padding="SAME",
-    use_bias=False, dtype)`` on NHWC tensors; weight OIHW."""
+    """flax ``nn.Conv(features, kernel, strides, padding, use_bias, dtype)``
+    on NHWC tensors; weight OIHW. ``padding`` is "SAME" or "VALID"; the
+    bias, where there is one, is added in ``dtype`` after the product is
+    rounded, as flax does."""
 
     def __init__(self, cin: int, cout: int, kernel, strides=(1, 1), dtype=torch.bfloat16,
-                 device=None):
+                 device=None, bias: bool = False, padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.kernel, self.strides, self.dtype = tuple(kernel), tuple(strides), dtype
+        self.padding = padding
         self.weight = nn.Parameter(torch.empty(cout, cin, *self.kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) if bias else None
 
     def forward(self, x):
         x = x.to(self.dtype)
         pad = (0, 0)
-        ph, pw = (same_pads(n, k, s) for n, k, s in zip(x.shape[1:3], self.kernel, self.strides))
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            pad = (ph[0], pw[0])
-        else:
-            x = _pad_nhwc(x, ph, pw)
+        if self.padding == "SAME":
+            ph, pw = (same_pads(n, k, s)
+                      for n, k, s in zip(x.shape[1:3], self.kernel, self.strides))
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                pad = (ph[0], pw[0])
+            else:
+                x = _pad_nhwc(x, ph, pw)
         stride = self.strides
         y = per_sample(lambda t, w: F.conv2d(t, w, stride=stride, padding=pad),
                        x.permute(0, 3, 1, 2), replicated=(gather_fsdp(self.weight).to(self.dtype),))
-        return y.permute(0, 2, 3, 1)
+        y = y.permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Dense(nn.Module):
@@ -149,6 +167,43 @@ class Dense(nn.Module):
     def forward(self, x):
         x = x.to(self.dtype)
         return F.linear(x, gather_fsdp(self.weight).to(self.dtype)) + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon, dtype)`` over the last dim: statistics
+    in fp32 whatever the input's dtype, fp32 ``scale`` and ``bias``, the
+    result cast to ``dtype`` (flax's default epsilon is 1e-6, torch's
+    1e-5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), x.shape[-1:], self.scale.float(), self.bias.float(),
+                         self.eps)
+        return y.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon=1e-6, dtype)`` on NHWC: the
+    channels (last dim) split into ``num_groups`` runs of adjacent channels,
+    statistics over H, W and the run, in fp32; the result in ``dtype``."""
+
+    def __init__(self, channels: int, num_groups: int, eps: float = 1e-6,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.scale = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x):
+        # F.group_norm groups dim 1: the NCHW view of the NHWC map
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.groups, self.scale.float(),
+                         self.bias.float(), self.eps)
+        return y.permute(0, 2, 3, 1).to(self.dtype)
 
 
 def max_pool(x, window: int, stride: int, padding: str = "VALID"):

@@ -2,16 +2,25 @@
 
 ``params_from_jax`` takes a flax ``params`` tree as nested dicts of numpy
 arrays and returns the port's parameters by name; ``params_to_jax`` goes
-back. Two families:
+back. Two kinds of family:
 
 - Llama (:class:`models.llama.Llama`): ``layer{i}/attn/q_proj/kernel`` ↔
   ``layers.{i}.attn.q_proj.weight`` and so on;
-- the BatchNorm conv nets (:mod:`models.resnet`, :mod:`models.vgg`,
-  :mod:`models.inception`), whose port modules carry flax's names, so a
-  path maps to its dotted join: ``…/Conv_0/kernel`` ↔ ``….Conv_0.weight``,
-  ``…/Dense_0/kernel`` (or ``head``) ↔ ``….weight``, ``…/BatchNorm_0/scale``
-  and ``bias`` unchanged. ``batch_stats_from_jax``/``batch_stats_to_jax``
-  carry the ``batch_stats`` collection (``…/BatchNorm_0/mean`` and ``var``).
+- the flax-named families, whose port modules carry flax's names, so a
+  path maps to its dotted join: the BatchNorm conv nets
+  (:mod:`models.resnet`, :mod:`models.vgg`, :mod:`models.inception`),
+  :mod:`models.mnist`, :mod:`models.unet`, :mod:`models.vit` and
+  :mod:`models.bert`. A kernel (``…/Conv_0/kernel``, ``Dense_k``, ``head``,
+  and the explicit names ``patch_embed``, ``{q,k,v,o}_proj``, ``up``,
+  ``down``, ``query``, ``key``, ``value``, ``attn_out``, ``ffn_in``,
+  ``ffn_out``, ``pooler``, ``mlm_transform``, ``mlm_head``) ↔
+  ``….weight``; its ``bias`` kept, except on a conv inside a conv + norm
+  unit (``_ConvBN_k``, ``_ConvBlock_k``), which has none; the ``scale``
+  and ``bias`` of ``BatchNorm_k``, ``LayerNorm_k`` and ``GroupNorm_k``, the
+  ``embedding`` of BERT's ``tok`` and ``typ``, and the raw ``cls``,
+  ``pos_embed`` and ``pos`` unchanged. ``batch_stats_from_jax``/
+  ``batch_stats_to_jax`` carry the ``batch_stats`` collection
+  (``…/BatchNorm_0/mean`` and ``var``).
 
 Dense kernels are stored ``(in, out)`` in flax and ``(out, in)`` in the
 port, so they are transposed, as is Llama's ``(hidden, vocab)`` output
@@ -53,8 +62,20 @@ from tensorflowonspark_tpu_torch.ops import lora as _lora
 from tensorflowonspark_tpu_torch.ops import quant as _quant
 
 _LAYER = re.compile(r"layer(\d+)$")
-_CONV_KERNEL = re.compile(r"(?:(?:Conv|Dense)_\d+|head)$")
+# the flax-named families' kernel owners: auto-named convs and dense
+# layers, the heads, and the explicit names of ViT and BERT
+_KERNEL_OWNER = re.compile(
+    r"(?:(?:Conv|Dense)_\d+|head|patch_embed|[qkvo]_proj|up|down|query|key|value|attn_out"
+    r"|ffn_in|ffn_out|pooler|mlm_transform|mlm_head)$")
 _BATCH_NORM = re.compile(r"BatchNorm_\d+$")
+# owners of a 'scale' and a 'bias'
+_NORM = re.compile(r"(?:BatchNorm|LayerNorm|GroupNorm)_\d+$")
+# conv + norm units, whose convs carry no bias
+_NORM_UNIT = re.compile(r"_Conv(?:BN|Block)_\d+$")
+# BERT's embedding tables (an 'embedding' leaf) and raw position and class
+# parameters (ViT's 'cls' and 'pos_embed', BERT's 'pos'), kept as they are
+_EMBED_OWNER = re.compile(r"(?:tok|typ)$")
+_RAW = ("cls", "pos_embed", "pos")
 _NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]*$")
 _DENSE = {
     "attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
@@ -119,28 +140,56 @@ def _node_from_jax(name: str, transpose: bool, leaf) -> dict:
     }
 
 
-def _biased(owner: str) -> bool:
-    return not owner.startswith("Conv")  # the conv nets' convs have no bias
+def _biased(parts) -> bool:
+    """Whether the kernel owner ``parts[-2]`` may have a bias: a conv of a
+    conv + norm unit (``_ConvBN_k``, ``_ConvBlock_k``) has none."""
+    return not (parts[-2].startswith("Conv") and len(parts) >= 3
+                and _NORM_UNIT.match(parts[-3]))
 
 
-def _conv_port_name(path: tuple[str, ...]) -> tuple[str, bool] | None:
-    """(port name, kernel) for a conv-net leaf path, else None."""
-    if len(path) < 2 or not all(_NAME.match(p) for p in path):
+def _flax_leaf(parts) -> tuple[str, bool] | None:
+    """(other side's leaf name, kernel) for a path of the flax-named
+    families, from either side (a flax path or a port name split on dots),
+    else None: ``kernel`` ↔ ``weight`` (transposed), everything else kept."""
+    if not parts or not all(_NAME.match(p) for p in parts):
         return None
-    owner, leaf = path[-2], path[-1]
-    prefix = ".".join(path[:-1])
-    if _CONV_KERNEL.match(owner) and (leaf == "kernel" or (leaf == "bias" and _biased(owner))):
-        return f"{prefix}.{'weight' if leaf == 'kernel' else 'bias'}", leaf == "kernel"
-    if _BATCH_NORM.match(owner) and leaf in ("scale", "bias"):
-        return f"{prefix}.{leaf}", False
+    if parts[-1] in _RAW:
+        return parts[-1], False
+    if len(parts) < 2:
+        return None
+    owner, leaf = parts[-2], parts[-1]
+    if _KERNEL_OWNER.match(owner):
+        if leaf in ("kernel", "weight"):
+            return ("weight" if leaf == "kernel" else "kernel"), True
+        if leaf == "bias" and _biased(parts):
+            return "bias", False
+    if _NORM.match(owner) and leaf in ("scale", "bias"):
+        return leaf, False
+    if _EMBED_OWNER.match(owner) and leaf == "embedding":
+        return leaf, False
     return None
+
+
+def _flax_port_name(path: tuple[str, ...]) -> tuple[str, bool] | None:
+    """(port name, kernel) for a leaf path of the flax-named families (the
+    conv nets, MNIST, U-Net, ViT, BERT), else None."""
+    leaf = _flax_leaf(path)
+    if leaf is None or path[-1] == "weight":
+        return None
+    return ".".join(path[:-1] + (leaf[0],)), leaf[1]
 
 
 def _port_name(path: tuple[str, ...]) -> tuple[str, bool]:
     """(port name, transposed) for one flax leaf path."""
-    conv = _conv_port_name(path)
-    if conv is not None:
-        return conv
+    name = _llama_port_name(path)
+    if name is None:
+        name = _flax_port_name(path)
+    if name is None:
+        raise KeyError(f"no port parameter for flax leaf {'/'.join(path)}")
+    return name
+
+
+def _llama_port_name(path: tuple[str, ...]) -> tuple[str, bool] | None:
     if path == ("embed",):
         return "embed", False
     if path == ("lm_head",):
@@ -159,7 +208,7 @@ def _port_name(path: tuple[str, ...]) -> tuple[str, bool]:
                 return f"layers.{i}.{rest[0]}.{rest[1]}.weight", True
             if rest[2] == "bias":
                 return f"layers.{i}.{rest[0]}.{rest[1]}.bias", False
-    raise KeyError(f"no port parameter for flax leaf {'/'.join(path)}")
+    return None
 
 
 def params_from_jax(tree, mesh=None, table: str | None = None) -> dict[str, torch.Tensor]:
@@ -232,18 +281,6 @@ def batch_stats_to_jax(model) -> dict:
     return tree
 
 
-def _conv_leaf(parts: list[str]) -> tuple[str, bool] | None:
-    """(flax leaf, kernel) for a conv-net port name, else None."""
-    if len(parts) < 2:
-        return None
-    owner, leaf = parts[-2], parts[-1]
-    if _CONV_KERNEL.match(owner) and (leaf == "weight" or (leaf == "bias" and _biased(owner))):
-        return ("kernel", True) if leaf == "weight" else ("bias", False)
-    if _BATCH_NORM.match(owner) and leaf in ("scale", "bias"):
-        return leaf, False
-    return None
-
-
 # an int8 or LoRA entry's suffix -> the JAX node's field; the LoRA scale is
 # a static field there (the layout tables see it as a replicated scalar)
 _NODE_FIELDS = ((_lora.A, "a"), (_lora.B, "b"), (_lora.S, "scale"), (_quant.SCALE, "scale"))
@@ -267,10 +304,16 @@ def _jax_path(name: str) -> tuple[list[str], bool]:
         parts, transposed = _jax_path(base)
         return parts + [field], transposed and name != base + _lora.S
     parts = name.split(".")
-    conv = _conv_leaf(parts)
-    if conv is not None:
-        leaf, kernel = conv
-        return parts[:-1] + [leaf], kernel
+    llama = _llama_path(name, parts)
+    if llama is not None:
+        return llama
+    flax = _flax_leaf(parts) if parts[-1] != "kernel" else None
+    if flax is not None:
+        return parts[:-1] + [flax[0]], flax[1]
+    raise KeyError(f"no flax leaf for port parameter {name}")
+
+
+def _llama_path(name: str, parts: list[str]) -> tuple[list[str], bool] | None:
     if name in ("embed", "lm_head"):
         return [name], name == "lm_head"
     if name == "final_norm.scale":
@@ -285,7 +328,7 @@ def _jax_path(name: str) -> tuple[list[str], bool]:
             leaf = {"weight": "kernel", "bias": "bias"}.get(parts[4])
             if leaf is not None:
                 return [layer, parts[2], parts[3], leaf], leaf == "kernel"
-    raise KeyError(f"no flax leaf for port parameter {name}")
+    return None
 
 
 def jax_leaf(name: str, shape: tuple) -> tuple[str, tuple, tuple]:

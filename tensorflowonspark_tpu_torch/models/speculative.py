@@ -103,7 +103,10 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens: int, k: int
     S + max_new_tokens + k`` (the verify window may write up to ``k`` slots
     past the emitted text). Rows finish independently on ``eos_id`` and
     the loop ends once every row is done. Mixed-length prompts: right-pad
-    and pass ``prompt_lengths`` (B,), as for ``generate``.
+    and pass ``prompt_lengths`` (B,), as for ``generate``. The two
+    vocabularies may differ when greedy (a token id past a model's
+    vocabulary is clamped to its last row, as the JAX package's gather
+    does); sampling with two vocabularies raises ``ValueError``.
 
     ``stats``: a dict that gets ``iterations`` (verify forwards),
     ``host_reads`` (the loop's flag reads), ``accepted`` (drafts accepted
@@ -141,6 +144,12 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens: int, k: int
             )
         lengths = torch.as_tensor(host, dtype=torch.long, device=device)
     sampled = temperature > 0.0
+    t_vocab, d_vocab = model.cfg.vocab_size, draft_model.cfg.vocab_size
+    if sampled and t_vocab != d_vocab:
+        raise ValueError(
+            f"speculative sampling needs one vocabulary: the target has {t_vocab} tokens, "
+            f"the draft {d_vocab}"
+        )
     if sampled and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     temperature = float(temperature)
@@ -156,7 +165,10 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens: int, k: int
     positions = torch.arange(s, device=device).expand(b, s)
     t_cache, d_cache = init_cache(model.cfg, b, device), init_cache(draft_model.cfg, b, device)
     t_logits = model(prompt, positions=positions, decode=True, padded=True, cache=t_cache)
-    draft_model(prompt, positions=positions, decode=True, padded=True, cache=d_cache)
+    # a token past a model's vocabulary reads its last row, as the JAX
+    # package's gather clamps the index
+    draft_model(prompt.clamp(max=d_vocab - 1), positions=positions, decode=True, padded=True,
+                cache=d_cache)
     # the first token is the target's own pick at each row's last real
     # position; from here `last` is in neither cache and `pos` is the
     # position after it
@@ -180,8 +192,8 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens: int, k: int
     iterations = reads = 0
 
     def draft_step(tok, at):
-        return draft_model(tok[:, None], positions=at[:, None], decode=True, padded=True,
-                           cache=d_cache)[:, -1]
+        return draft_model(tok.clamp(max=d_vocab - 1)[:, None], positions=at[:, None],
+                           decode=True, padded=True, cache=d_cache)[:, -1]
 
     while True:
         reads += 1
@@ -204,7 +216,9 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens: int, k: int
         draft_step(drafts[:, -1], pos - 1 + k)
         # one target forward over [last, drafts]; logits[:, j] predict the
         # token at position pos + j
-        verify_in = torch.cat([last[:, None], drafts], dim=1)
+        # a proposal past the target's vocabulary is clamped here and never
+        # equals the target's pick below, so it is rejected
+        verify_in = torch.cat([last[:, None], drafts.clamp(max=t_vocab - 1)], dim=1)
         t_logits = model(verify_in, positions=pos[:, None] - 1 + j_idx, decode=True,
                          padded=True, cache=t_cache)
         if sampled:

@@ -69,6 +69,12 @@ def test_import_leaves_jax_out():
         "import tensorflowonspark_tpu_torch.serving.fleet, tensorflowonspark_tpu_torch.serving.router\n"
         "import tensorflowonspark_tpu_torch.cachetier, tensorflowonspark_tpu_torch.cachetier.prefix\n"
         "import tensorflowonspark_tpu_torch.cachetier.service, tensorflowonspark_tpu_torch.cachetier.frames\n"
+        "import tensorflowonspark_tpu_torch.models.zoo, tensorflowonspark_tpu_torch.models.vit\n"
+        "import tensorflowonspark_tpu_torch.models.bert, tensorflowonspark_tpu_torch.models.unet\n"
+        "import tensorflowonspark_tpu_torch.models.mnist\n"
+        "import tensorflowonspark_tpu_torch.examples.resnet_imagenet\n"
+        "import tensorflowonspark_tpu_torch.examples.mnist_spark\n"
+        "import tensorflowonspark_tpu_torch.examples.unet_segmentation\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

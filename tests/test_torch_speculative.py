@@ -236,3 +236,35 @@ def test_early_exit_draft_shares_the_target_tensors():
     got = tspec.speculative_generate(tt, early, prompt, NEW, k=2, stats=stats)
     assert torch.equal(got, tllama.generate(tt, torch.tensor(prompt, dtype=torch.long), NEW))
     assert 0 <= stats["accepted"] < 2 * stats["row_verifies"]
+
+
+@pytest.mark.parametrize("draft_vocab", [64, 4096])
+def test_draft_of_another_vocabulary(draft_vocab):
+    """A 1-layer draft whose vocabulary differs from the target's (256):
+    greedy tokens equal the JAX package's ``speculative_generate`` and
+    ``generate`` and the port's ``generate``. A prompt id past a small
+    draft's vocabulary and a proposal past the target's are clamped, as the
+    JAX package's gather clamps them; such a proposal is rejected."""
+    jt, tp, tt = _target()
+    jd, dp, td = _pair(2, vocab_size=draft_vocab, **DRAFT)
+    prompt = _prompt((3, 12), seed=31)
+    lengths = np.array([12, 9, 4], np.int32)
+    stats = {}
+    got = tspec.speculative_generate(tt, td, prompt, NEW, k=3, prompt_lengths=lengths,
+                                     stats=stats).numpy()
+    plain = tllama.generate(tt, torch.tensor(prompt, dtype=torch.long), NEW,
+                            prompt_lengths=lengths).numpy()
+    np.testing.assert_array_equal(got, plain)
+    want = jspec.speculative_generate(jt, tp, jd, dp, jnp.asarray(prompt), NEW, k=3,
+                                      prompt_lengths=lengths)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    want_plain = jllama.generate(jt, tp, jnp.asarray(prompt), NEW, prompt_lengths=lengths)
+    np.testing.assert_array_equal(got, np.asarray(want_plain))
+    assert 0 <= stats["accepted"] <= 3 * stats["row_verifies"]
+
+
+def test_sampling_refuses_two_vocabularies():
+    _, _, tt = _target()
+    _, _, td = _pair(2, vocab_size=64, **DRAFT)
+    with pytest.raises(ValueError, match="one vocabulary"):
+        tspec.speculative_generate(tt, td, _prompt((1, 8), seed=1), 4, temperature=0.5)
